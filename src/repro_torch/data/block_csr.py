@@ -1,0 +1,198 @@
+"""Block-local sharded CSR: the feature-distributed layout of a PaddedCSR.
+
+Port of ``repro.data.block_csr``.  For each feature block l of a
+:class:`~repro_torch.core.partition.FeaturePartition` the entries of
+every instance are stored as padded rows with a per-block nnz budget:
+
+    indices[l]: int32[N, nnz_l]   LOCAL feature ids in [0, dim_l), pad 0
+    values[l]:  float[N, nnz_l]   matching values, pad 0.0
+
+so worker l gathers against its local dense ``w`` block with no masking
+arithmetic.  Padding (local id 0, value 0.0) is inert in dots and
+scatter-adds.  Entry order within a row is preserved from the source.
+
+:func:`local_margins` / :func:`local_scatter` are the plain block-local
+hot paths; the kernels of :mod:`repro_torch.kernels` compute the same
+functions on the card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core.partition import FeaturePartition
+from repro_torch.data.sparse import PaddedCSR
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockCSR:
+    """A PaddedCSR re-indexed into q block-local shards."""
+
+    partition: FeaturePartition
+    indices: tuple[torch.Tensor, ...]  # per block: int32[N, nnz_l], local ids
+    values: tuple[torch.Tensor, ...]  # per block: float[N, nnz_l]
+    labels: torch.Tensor  # float[N], in {-1, +1}
+    dim: int  # global d
+    # Per-block int32[dim_l] counts of rows storing a nonzero value at
+    # each local id (None: compute on demand with nnz_col_block).
+    nnz_col: tuple[torch.Tensor, ...] | None = None
+    # The source's global padded-row width, which the cost model charges
+    # against (None: fall back to the sum of per-block budgets).
+    nnz_max: int | None = None
+
+    @property
+    def num_blocks(self) -> int:
+        return self.partition.num_blocks
+
+    @property
+    def num_instances(self) -> int:
+        return int(self.indices[0].shape[0])
+
+    @property
+    def block_dims(self) -> tuple[int, ...]:
+        return tuple(self.partition.block_sizes())
+
+    @property
+    def nnz_budgets(self) -> tuple[int, ...]:
+        return tuple(int(i.shape[1]) for i in self.indices)
+
+    @property
+    def device(self) -> torch.device:
+        return self.labels.device
+
+    def block(self, l: int) -> tuple[torch.Tensor, torch.Tensor]:
+        return self.indices[l], self.values[l]
+
+    def global_nnz_max(self) -> int:
+        """The global padded-row width the cost model charges against."""
+        if self.nnz_max is not None:
+            return self.nnz_max
+        return int(sum(self.nnz_budgets))
+
+    def nnz_col_block(self, l: int) -> torch.Tensor:
+        """int32[dim_l] per-feature instance counts for block ``l``."""
+        if self.nnz_col is not None:
+            return self.nnz_col[l]
+        counts = _count_cols(
+            self.indices[l].cpu().numpy(),
+            self.values[l].cpu().numpy(),
+            int(self.block_dims[l]),
+        )
+        return torch.from_numpy(counts).to(self.device)
+
+    def to(self, device: torch.device | str) -> "BlockCSR":
+        """The same layout with every tensor on ``device``."""
+        return dataclasses.replace(
+            self,
+            indices=tuple(i.to(device) for i in self.indices),
+            values=tuple(v.to(device) for v in self.values),
+            labels=self.labels.to(device),
+            nnz_col=(
+                None if self.nnz_col is None
+                else tuple(c.to(device) for c in self.nnz_col)
+            ),
+        )
+
+    @classmethod
+    def from_padded(
+        cls,
+        data: PaddedCSR,
+        partition: FeaturePartition,
+        *,
+        lane_multiple: int = 1,
+    ) -> "BlockCSR":
+        """Build the block-local layout (host numpy, once per data set).
+
+        Byte-identical to the reference's ``BlockCSR.from_padded``:
+        ``lane_multiple`` rounds each block's budget up; the single-block
+        partition reuses the PaddedCSR rows as they are; entries with
+        ``value == 0.0`` are dropped during re-indexing (an explicit zero
+        becomes padding, which no operation here can tell apart).  The
+        result's tensors lie on the CPU; move them with :meth:`to`.
+        """
+        if partition.dim != data.dim:
+            raise ValueError(
+                f"partition covers dim={partition.dim}, data has dim={data.dim}"
+            )
+        idx = data.indices.cpu().numpy()
+        val = data.values.cpu().numpy()
+        labels = data.labels.cpu()
+        if partition.num_blocks == 1:
+            return cls(
+                partition=partition,
+                indices=(data.indices.cpu(),),
+                values=(data.values.cpu(),),
+                labels=labels,
+                dim=data.dim,
+                nnz_col=(torch.from_numpy(_count_cols(idx, val, data.dim)),),
+                nnz_max=data.nnz_max,
+            )
+        n = idx.shape[0]
+        block_indices: list[torch.Tensor] = []
+        block_values: list[torch.Tensor] = []
+        block_nnz_col: list[torch.Tensor] = []
+        for l in range(partition.num_blocks):
+            lo, hi = partition.block(l)
+            in_blk = (idx >= lo) & (idx < hi) & (val != 0.0)
+            counts = in_blk.sum(axis=1)
+            budget = max(1, int(counts.max()) if n else 1)
+            budget += (-budget) % lane_multiple
+            out_idx = np.zeros((n, budget), dtype=np.int32)
+            out_val = np.zeros((n, budget), dtype=val.dtype)
+            rows, cols = np.nonzero(in_blk)  # row-major: preserves row order
+            # position of each entry within its (compacted) row
+            pos = np.arange(rows.size) - np.searchsorted(rows, rows, side="left")
+            out_idx[rows, pos] = idx[rows, cols] - lo
+            out_val[rows, pos] = val[rows, cols]
+            block_indices.append(torch.from_numpy(out_idx))
+            block_values.append(torch.from_numpy(out_val))
+            block_nnz_col.append(
+                torch.from_numpy(_count_cols(out_idx, out_val, hi - lo))
+            )
+        return cls(
+            partition=partition,
+            indices=tuple(block_indices),
+            values=tuple(block_values),
+            labels=labels,
+            dim=data.dim,
+            nnz_col=tuple(block_nnz_col),
+            nnz_max=data.nnz_max,
+        )
+
+    def nnz_total(self) -> int:
+        return int(sum(int(torch.count_nonzero(v)) for v in self.values))
+
+
+def _count_cols(indices: np.ndarray, values: np.ndarray, dim: int) -> np.ndarray:
+    """int32[dim] count of rows storing a nonzero value per local id."""
+    mask = values != 0.0
+    return np.bincount(
+        indices[mask].reshape(-1), minlength=dim
+    ).astype(np.int32)
+
+
+def local_margins(
+    indices: torch.Tensor, values: torch.Tensor, w_block: torch.Tensor
+) -> torch.Tensor:
+    """s^(l)_i = w^(l)T x^(l)_i from block-LOCAL padded rows ([R, nnz_l])."""
+    return torch.sum(w_block[indices] * values, dim=-1)
+
+
+def local_scatter(
+    indices: torch.Tensor,
+    values: torch.Tensor,
+    coeffs: torch.Tensor,
+    block_dim: int,
+) -> torch.Tensor:
+    """sum_i coeffs_i * x^(l)_i as a dense block vector, local ids only.
+
+    On the CPU, ``index_add_`` accumulates in flat order and equals the
+    reference's ``.at[].add`` bit for bit.
+    """
+    flat_idx = indices.reshape(-1)
+    flat_val = (values * coeffs[..., None]).reshape(-1)
+    out = torch.zeros((block_dim,), dtype=values.dtype, device=values.device)
+    return out.index_add_(0, flat_idx, flat_val)
