@@ -1,24 +1,29 @@
 """FD-SVRG (paper Algorithm 1) and serial SVRG (paper Algorithm 2).
 
-Port of ``repro.core.fdsvrg`` for the main path:
+Port of ``repro.core.fdsvrg``:
 
 * :func:`run_serial_svrg` — Algorithm 2 (Johnson & Zhang), options I/II,
   on the q = 1 block layout.
 * :func:`run_fdsvrg` — Algorithm 1 at simulation level: margins are the
   tree-order sum of per-block partials, communication is metered with the
   paper's accounting through a ``Collectives`` backend.
+* :func:`fdsvrg_worker_simulation` — the explicit q-worker object-level
+  simulation (each worker touches only its own ``w^(l)`` and rows): the
+  executable spec.
 
-Both are thin wrappers over :class:`repro_torch.optim.update_rules.SVRGRule`
-running under :func:`repro_torch.core.driver.run_outer_loop`.  The two
-hooks of the rule are here: :func:`_full_grad_blocks` (snapshot) and
-:func:`_inner_epoch` (epoch; the reference's ``lax.scan`` becomes a Python
-loop that never waits on the device).
+The first two are thin wrappers over
+:class:`repro_torch.optim.update_rules.SVRGRule` running under
+:func:`repro_torch.core.driver.run_outer_loop`.  The rule's hooks are
+here: :func:`_full_grad_blocks` (snapshot), and :func:`_inner_epoch` or,
+with ``lazy_updates="exact" | "proba"``, :func:`_lazy_inner_epoch`
+(epoch; the reference's ``lax.scan`` becomes a Python loop that never
+waits on the device).
 
-``use_kernels=True`` (the default) routes the gather-margin and the fused
-scatter + update + prox through :mod:`repro_torch.kernels.ops`: the CUDA
-kernels on a CUDA device, their plain PyTorch versions on the CPU.
-``use_kernels=False`` is the plain path written like the reference's
-jnp oracle.
+``use_kernels=True`` (the default) routes the gather-margin, the fused
+scatter + update + prox and the lazy steps through
+:mod:`repro_torch.kernels.ops`: the CUDA kernels on a CUDA device, their
+plain PyTorch versions on the CPU.  ``use_kernels=False`` is the plain
+path written like the reference's jnp oracle.
 """
 
 from __future__ import annotations
@@ -29,13 +34,22 @@ import numpy as np
 import torch
 
 from repro_torch.core import losses as losses_lib
-from repro_torch.core.driver import RecoveryPolicy, RunResult, resolve_device
+from repro_torch.core.driver import (
+    RecoveryPolicy,
+    RunResult,
+    draw_samples,
+    make_same_iterate_eval,
+    option_mask,
+    resolve_device,
+    resolve_init_w,
+    run_outer_loop,
+)
 from repro_torch.core.partition import FeaturePartition, balanced
 from repro_torch.data.block_csr import BlockCSR, local_margins, local_scatter
 from repro_torch.data.sparse import PaddedCSR, margins_rows, scatter_grad
 from repro_torch.dist import COSTS, ClusterModel, Collectives, SimBackend, tree_order_sum
 from repro_torch.dist.meter import tree_rounds
-from repro_torch.kernels import ops
+from repro_torch.kernels import lazy_update, ops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -216,13 +230,198 @@ def _inner_epoch(
     return torch.cat(w_blocks) if q > 1 else w_blocks[0]
 
 
+# ---------------------------------------------------------------------------
+# Lazy (delayed-decay) inner epoch — O(u * nnz_l) per step
+# ---------------------------------------------------------------------------
+
+
 def _check_lazy(lazy_updates: str | None) -> None:
-    if lazy_updates is not None:
-        raise NotImplementedError(
-            f"lazy_updates={lazy_updates!r}: the delayed-decay inner epoch and "
-            "its four kernels are not ported yet (ROADMAP queue 1, item 4 and "
-            "queue 2, items 4-7)"
+    if lazy_updates not in (None, "exact", "proba"):
+        raise ValueError(
+            "lazy_updates must be None, 'exact', or 'proba', got "
+            f"{lazy_updates!r}"
         )
+
+
+def _lazy_lams(reg: losses_lib.Regularizer) -> tuple[float, float, float]:
+    """(smooth_lam, prox_l1, prox_l2) of the lazy kernels and the
+    simulation helpers."""
+    return (reg.smooth_lam, reg.prox_l1, reg.prox_l2)
+
+
+def _lazy_corrections(
+    block_data: BlockCSR, n: int, u: int, lazy_updates: str | None
+) -> torch.Tensor | None:
+    """Concatenated per-feature step corrections (probabilistic variant)."""
+    if lazy_updates != "proba":
+        return None
+    blocks = [
+        ops.step_corrections(block_data.nnz_col_block(l), n, u)
+        for l in range(block_data.num_blocks)
+    ]
+    return torch.cat(blocks) if len(blocks) > 1 else blocks[0]
+
+
+def _lazy_inner_epoch(
+    block_data: BlockCSR,
+    w0: torch.Tensor,
+    z_data: torch.Tensor,
+    s0: torch.Tensor,
+    samples: np.ndarray,  # int32[M, u]
+    eta: float,
+    step_mask: np.ndarray,  # float32[M]; a monotone prefix of ones (options I/II)
+    corrections: torch.Tensor | None,  # [d] step corrections (proba) or None
+    loss: losses_lib.MarginLoss,
+    reg: losses_lib.Regularizer,
+    use_kernels: bool,
+    variant: str,  # "exact" | "proba"
+) -> torch.Tensor:
+    """The inner epoch of :func:`_inner_epoch` with O(u * nnz_l) work per
+    block and step:
+
+    * exact — catch up the touched features (replay their deferred
+      steps), read the margins from the caught-up block, apply the dense
+      update at the touched features only, and at epoch end replay every
+      feature's remaining steps (flush): the result equals
+      :func:`_inner_epoch`'s bit for bit;
+    * proba — touched features only, the decay scaled by the per-feature
+      corrections; no counters, no flush.
+
+    Both read only block-local state, so the metered schedule is the dense
+    one.  ``w0`` is copied once; the steps update the copy in place (the
+    lazy kernels and their plain versions work in place).  Samples, mask
+    and ``stop = sum(mask)`` come from numpy on the host, so on the kernel
+    path no step waits on the device.  ``use_kernels=False`` mirrors the
+    reference's jnp closures; its replay reads ``max(k_active)`` from the
+    device at every catch-up.
+    """
+    bd = block_data
+    device = w0.device
+    q = bd.num_blocks
+    m_total, u = samples.shape
+    bounds = _bounds(bd.block_dims)
+    exact = variant == "exact"
+    eta32 = float(np.float32(eta))
+    eta_steps = np.float32(eta) * step_mask.astype(np.float32)  # float32[M]
+    # Option masks are 1s then 0s: a gap is `active` replays + <= 1 masked.
+    stop = int(step_mask.sum())
+    ids_all = _to_device(samples.astype(np.int64), device)
+    u_t = torch.full((), float(u), dtype=w0.dtype, device=device)
+    smooth_lam, lam1, lam2 = _lazy_lams(reg)
+    w = w0.clone()
+    w_blocks = [w[bounds[l]:bounds[l + 1]] for l in range(q)]  # views of w
+    z_blocks = [z_data[bounds[l]:bounds[l + 1]] for l in range(q)]
+    if exact:
+        last = torch.zeros(w.shape, dtype=torch.int32, device=device)
+        last_blocks = [last[bounds[l]:bounds[l + 1]] for l in range(q)]
+    else:
+        corr_blocks = [corrections[bounds[l]:bounds[l + 1]] for l in range(q)]
+    if not use_kernels:
+        eta_dev = _to_device(eta_steps, device)
+        eta_full = torch.full((), eta32, dtype=w0.dtype, device=device)
+
+    def plain_replay(wl, zl, k_active, has_masked):
+        # The untouched dense step (g = the scatter's +0.0 base), replayed
+        # k_active times plus at most one masked step.
+        def one(cur, eta_i):
+            g = 0.0 + zl + smooth_lam * cur
+            return reg.prox(cur - eta_i * g, eta_i)
+
+        for i in range(int(k_active.max()) if k_active.numel() else 0):
+            wl = torch.where(i < k_active, one(wl, eta_full), wl)
+        return torch.where(has_masked, one(wl, eta_full * 0.0), wl)
+
+    def plain_catchup(w_blk, last_blk, z_blk, idx, m):
+        flat = idx.reshape(-1)
+        ll = last_blk[flat]
+        k_active = torch.clamp_min(min(stop, m) - ll, 0)
+        has_masked = (m - ll) > k_active
+        w_blk[flat] = plain_replay(w_blk[flat], z_blk[flat], k_active, has_masked)
+        last_blk[flat] = m + 1
+
+    def plain_touch(w_blk, idx, val, coef, z_blk, eta_m):
+        # First-occurrence accumulation: the dense scatter's order (the
+        # bit-identity contract pins it).
+        flat = idx.reshape(-1)
+        contrib = (val * coef[..., None]).reshape(-1)
+        first = lazy_update.first_occurrence(flat)
+        g = torch.zeros_like(contrib).index_add_(0, first, contrib)
+        wl = w_blk[flat]
+        g = g + z_blk[flat] + smooth_lam * wl
+        w_blk[flat] = reg.prox(wl - eta_m * g, eta_m)[first]
+
+    def plain_flush(w_blk, last_blk, z_blk):
+        k_active = torch.clamp_min(min(stop, m_total) - last_blk, 0)
+        has_masked = (m_total - last_blk) > k_active
+        w_blk.copy_(plain_replay(w_blk, z_blk, k_active, has_masked))
+
+    def plain_proba(w_blk, idx, val, coef, z_blk, corr_blk, eta_m):
+        # Masked column-sum dedup: every lane of a duplicated id gets the
+        # same summed contribution (no bit contract here, as in the
+        # reference).
+        flat = idx.reshape(-1)
+        contrib = (val * coef[..., None]).reshape(-1)
+        eq = flat[:, None] == flat[None, :]
+        g = torch.sum(torch.where(eq, contrib[:, None], 0.0), dim=0)
+        wl = w_blk[flat]
+        cl = corr_blk[flat]
+        v = wl - eta_m * (g + cl * (z_blk[flat] + smooth_lam * wl))
+        if reg.name in ("l1", "elastic_net"):
+            v = losses_lib.soft_threshold(v, eta_m * reg.lam * cl)
+            if reg.lam2:
+                v = v / (1.0 + eta_m * reg.lam2 * cl)
+        w_blk[flat] = v
+
+    for m in range(m_total):
+        ids = ids_all[m]
+        y = bd.labels[ids]
+        rows = [(bd.indices[l][ids], bd.values[l][ids]) for l in range(q)]
+        if exact:
+            for l in range(q):
+                if use_kernels:
+                    ops.lazy_block_catchup(
+                        w_blocks[l], last_blocks[l], z_blocks[l], rows[l][0],
+                        eta32, m, stop, lam=smooth_lam, lam1=lam1, lam2=lam2,
+                    )
+                else:
+                    plain_catchup(w_blocks[l], last_blocks[l], z_blocks[l], rows[l][0], m)
+        # The margins gather only touched ids, which the catch-up just
+        # materialized: coef is the dense epoch's, bit for bit.
+        parts = [
+            _block_margins(rows[l][0], rows[l][1], w_blocks[l], use_kernels)
+            for l in range(q)
+        ]
+        s_m = tree_order_sum(parts)
+        coef = (loss.dvalue(s_m, y) - loss.dvalue(s0[ids], y)) / u_t
+        for l in range(q):
+            idx, val = rows[l]
+            if use_kernels and exact:
+                ops.lazy_block_touch_update(
+                    w_blocks[l], idx, val, coef, z_blocks[l], float(eta_steps[m]),
+                    lam=smooth_lam, lam1=lam1, lam2=lam2,
+                )
+            elif use_kernels:
+                ops.lazy_block_proba_update(
+                    w_blocks[l], idx, val, coef, z_blocks[l], corr_blocks[l],
+                    float(eta_steps[m]), lam=smooth_lam, lam1=lam1, lam2=lam2,
+                )
+            elif exact:
+                plain_touch(w_blocks[l], idx, val, coef, z_blocks[l], eta_dev[m])
+            else:
+                plain_proba(w_blocks[l], idx, val, coef, z_blocks[l], corr_blocks[l],
+                            eta_dev[m])
+    if exact:
+        # Epoch-end flush: snapshots, objectives and meters downstream see
+        # the fully materialized iterate.
+        for l in range(q):
+            if use_kernels:
+                ops.lazy_block_flush(
+                    w_blocks[l], last_blocks[l], z_blocks[l], eta32, m_total, stop,
+                    lam=smooth_lam, lam1=lam1, lam2=lam2,
+                )
+            else:
+                plain_flush(w_blocks[l], last_blocks[l], z_blocks[l])
+    return w
 
 
 # ---------------------------------------------------------------------------
@@ -264,7 +463,7 @@ def run_serial_svrg(
     from repro_torch.optim.update_rules import SVRGRule, make_context, run_with_rule
 
     return run_with_rule(
-        SVRGRule(use_kernels=use_kernels),
+        SVRGRule(use_kernels=use_kernels, lazy_updates=lazy_updates),
         make_context(block_data.to(device), loss, reg, cfg),
         init_w=init_w,
         recovery=recovery,
@@ -325,8 +524,234 @@ def run_fdsvrg(
     from repro_torch.optim.update_rules import SVRGRule, make_context, run_with_rule
 
     return run_with_rule(
-        SVRGRule(use_kernels=use_kernels),
+        SVRGRule(use_kernels=use_kernels, lazy_updates=lazy_updates),
         make_context(block_data.to(device), loss, reg, cfg, backend=backend),
         init_w=init_w,
         recovery=recovery,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Explicit q-worker simulation (the executable spec): workers only see
+# their own blocks
+# ---------------------------------------------------------------------------
+
+
+def _sim_margins(idx, val, w_block, use_kernels: bool) -> torch.Tensor:
+    return _block_margins(idx, val, w_block, use_kernels)
+
+
+def _sim_scatter(idx, val, coeffs, block_dim: int) -> torch.Tensor:
+    return local_scatter(idx, val, coeffs, block_dim)
+
+
+def _sim_update(w_block, idx, val, coef, z_block, eta_m: float, reg, use_kernels: bool):
+    """One worker's dense prox step; ``eta_m`` a float32 host value."""
+    if use_kernels:
+        return ops.fused_block_prox_update(
+            w_block, idx, val, coef, z_block, eta_m,
+            lam=reg.smooth_lam, lam1=reg.prox_l1, lam2=reg.prox_l2,
+        )
+    eta_t = torch.full((), eta_m, dtype=w_block.dtype, device=w_block.device)
+    g = (
+        local_scatter(idx, val, coef, w_block.shape[0])
+        + z_block
+        + reg.smooth_grad(w_block)
+    )
+    return reg.prox(w_block - eta_t * g, eta_t)
+
+
+# The lazy per-step worker operations: the ops wrappers (kernels on the
+# card, plain versions on the CPU) or, with use_kernels=False, the plain
+# versions on any device.  All update the worker's block in place.
+
+
+def _sim_lazy_catchup(w_block, last_block, z_block, idx, eta, m, stop, lams, use_kernels):
+    lam, lam1, lam2 = lams
+    if use_kernels:
+        return ops.lazy_block_catchup(
+            w_block, last_block, z_block, idx, eta, m, stop, lam=lam, lam1=lam1, lam2=lam2
+        )
+    return lazy_update.lazy_catchup_plain(
+        w_block, last_block, z_block, idx, eta, m, stop, lam, lam1, lam2
+    )
+
+
+def _sim_lazy_touch(w_block, idx, val, coef, z_block, eta_m, lams, use_kernels):
+    lam, lam1, lam2 = lams
+    if use_kernels:
+        return ops.lazy_block_touch_update(
+            w_block, idx, val, coef, z_block, eta_m, lam=lam, lam1=lam1, lam2=lam2
+        )
+    return lazy_update.lazy_touch_update_plain(
+        w_block, idx, val, coef, z_block, eta_m, lam, lam1, lam2
+    )
+
+
+def _sim_lazy_flush(w_block, last_block, z_block, eta, total, stop, lams, use_kernels):
+    lam, lam1, lam2 = lams
+    if use_kernels:
+        return ops.lazy_block_flush(
+            w_block, last_block, z_block, eta, total, stop, lam=lam, lam1=lam1, lam2=lam2
+        )
+    return lazy_update.lazy_flush_plain(
+        w_block, last_block, z_block, eta, total, stop, lam, lam1, lam2
+    )
+
+
+def _sim_lazy_proba(w_block, idx, val, coef, z_block, corr_block, eta_m, lams, use_kernels):
+    lam, lam1, lam2 = lams
+    if use_kernels:
+        return ops.lazy_block_proba_update(
+            w_block, idx, val, coef, z_block, corr_block, eta_m,
+            lam=lam, lam1=lam1, lam2=lam2,
+        )
+    return lazy_update.lazy_proba_update_plain(
+        w_block, idx, val, coef, z_block, corr_block, eta_m, lam, lam1, lam2
+    )
+
+
+def _with_default_abort(
+    recovery: RecoveryPolicy | None, n: int, nnz: int, q: int
+) -> RecoveryPolicy | None:
+    if recovery is None or recovery.on_abort is not None:
+        return recovery
+    return dataclasses.replace(recovery, on_abort=_default_fd_abort(n, nnz, q))
+
+
+def fdsvrg_worker_simulation(
+    data: PaddedCSR | None,
+    partition: FeaturePartition,
+    loss: losses_lib.MarginLoss,
+    reg: losses_lib.Regularizer,
+    cfg: SVRGConfig,
+    backend: Collectives | None = None,
+    *,
+    use_kernels: bool = True,
+    block_data: BlockCSR | None = None,
+    init_w: torch.Tensor | np.ndarray | None = None,
+    lazy_updates: str | None = None,
+    recovery: RecoveryPolicy | None = None,
+    device: torch.device | str | None = None,
+) -> RunResult:
+    """Object-level Algorithm 1: a list of per-worker states; every
+    inner-loop cross-worker scalar passes through ``backend.all_reduce``
+    (default a fresh ``SimBackend`` running the explicit Figure-5 message
+    schedule), and the full-gradient tree is metered once per outer via
+    ``meter_tree``.  Each worker holds only its block-local rows and its
+    ``w^(l)``.  Deliberately step by step and slow: this is the executable
+    spec that certifies FD == serial inside the port.
+
+    ``lazy_updates`` ("exact" | "proba") runs the worker-local
+    delayed-decay flow (catch up before the margin read, update only the
+    touched features, flush each block at epoch end); the all-reduce
+    schedule is untouched.  ``use_kernels`` and ``device`` default as in
+    :func:`run_fdsvrg`.
+    """
+    _check_lazy(lazy_updates)
+    device = resolve_device(device)
+    q = partition.num_blocks
+    backend = backend or SimBackend(q)
+    if block_data is None:
+        if data is None:
+            raise ValueError("pass data or a prebuilt block_data")
+        block_data = BlockCSR.from_padded(data, partition)
+    elif block_data.partition.bounds != partition.bounds:
+        raise ValueError("block_data was built for a different partition")
+    block_data = block_data.to(device)
+    labels = block_data.labels
+    block_dims = block_data.block_dims
+    bounds = _bounds(block_dims)
+    n = block_data.num_instances
+    u = cfg.batch_size
+    u_t = torch.full((), float(u), dtype=block_data.values[0].dtype, device=device)
+
+    def split(w):
+        return [w[bounds[l]:bounds[l + 1]] for l in range(q)]
+
+    def snapshot(w):
+        # Lines 3-4: per-worker partial margins, canonical tree-order sum;
+        # line 5: purely local scatter of the full-gradient block.
+        blocks = split(w)
+        partials = [
+            _sim_margins(*block_data.block(l), blocks[l], use_kernels) for l in range(q)
+        ]
+        s0 = tree_order_sum(partials)
+        coeffs0 = _divide(loss.dvalue(s0, labels), n)
+        z_blocks = [
+            _sim_scatter(*block_data.block(l), coeffs0, block_dims[l]) for l in range(q)
+        ]
+        z_data = torch.cat(z_blocks) if q > 1 else z_blocks[0]
+        return z_data, s0
+
+    lams = _lazy_lams(reg)
+    exact = lazy_updates == "exact"
+    corr_blocks = (
+        [ops.step_corrections(block_data.nnz_col_block(l), n, u) for l in range(q)]
+        if lazy_updates == "proba"
+        else None
+    )
+
+    def epoch(t, rng, w, z_data, s0, eta_scale=1.0):
+        # Account the full-gradient tree this outer consumed (lines 3-4).
+        backend.meter_tree(payload=n)
+        eta_eff = cfg.eta * eta_scale
+        blocks = split(w.clone())  # the lazy steps work in place
+        z_blocks = split(z_data)
+        samples = draw_samples(rng, n, cfg.inner_steps, u)
+        mask = option_mask(rng, cfg.inner_steps, cfg.option)
+        eta_full = float(np.float32(eta_eff))
+        stop = int(mask.sum())
+        lasts = [
+            torch.zeros((block_dims[l],), dtype=torch.int32, device=device)
+            for l in range(q)
+        ]
+        ids_all = _to_device(samples.astype(np.int64), device)
+        for m in range(cfg.inner_steps):
+            ids = ids_all[m]
+            rows = [(block_data.indices[l][ids], block_data.values[l][ids]) for l in range(q)]
+            y = labels[ids]
+            if exact:
+                # Replay each touched feature's deferred steps so the margin
+                # read below sees the materialized values.
+                for l in range(q):
+                    _sim_lazy_catchup(blocks[l], lasts[l], z_blocks[l], rows[l][0],
+                                      eta_full, m, stop, lams, use_kernels)
+            # Lines 9-10: per-worker partial margins, tree-summed (u scalars).
+            partial_m = [
+                _sim_margins(rows[l][0], rows[l][1], blocks[l], use_kernels)
+                for l in range(q)
+            ]
+            s_m = backend.all_reduce(partial_m, payload=u)
+            coef = (loss.dvalue(s_m, y) - loss.dvalue(s0[ids], y)) / u_t
+            eta_m = float(np.float32(eta_eff * float(mask[m])))
+            # Line 11: purely local prox update on each block (the prox is
+            # elementwise, paper eq. 3, so no worker needs its peers).
+            for l in range(q):
+                idx, val = rows[l]
+                if lazy_updates is None:
+                    blocks[l] = _sim_update(blocks[l], idx, val, coef, z_blocks[l], eta_m,
+                                            reg, use_kernels)
+                elif exact:
+                    _sim_lazy_touch(blocks[l], idx, val, coef, z_blocks[l], eta_m, lams,
+                                    use_kernels)
+                else:
+                    _sim_lazy_proba(blocks[l], idx, val, coef, z_blocks[l], corr_blocks[l],
+                                    eta_m, lams, use_kernels)
+        if exact:
+            # Epoch-end reconciliation, worker-locally (zero communication).
+            for l in range(q):
+                _sim_lazy_flush(blocks[l], lasts[l], z_blocks[l], eta_full,
+                                cfg.inner_steps, stop, lams, use_kernels)
+        return torch.cat(blocks) if q > 1 else blocks[0]
+
+    return run_outer_loop(
+        outer_iters=cfg.outer_iters,
+        seed=cfg.seed,
+        init_w=resolve_init_w(init_w, block_data.dim, block_data.values[0].dtype, device),
+        snapshot=snapshot,
+        epoch=epoch,
+        evaluate=make_same_iterate_eval(labels, loss, reg, cfg.eta),
+        backend=backend,
+        recovery=_with_default_abort(recovery, n, block_data.global_nnz_max(), q),
     )

@@ -1,10 +1,11 @@
 """Build and load the CUDA kernels: nvcc into one shared library, bound with ctypes.
 
-The sources in ``kernels/csrc/*.cu`` have a plain C interface and include
-no PyTorch headers, so a build takes seconds.  :func:`load_library`
-builds at first use into ``<checkout>/build/repro_torch_kernels/`` — one
-``nvcc -c`` per source, all started together, then one link — and
-reuses the library while the hash of the sources and flags is unchanged.
+The sources in ``kernels/csrc/*.cu`` (and the ``*.cuh`` they include)
+have a plain C interface and include no PyTorch headers, so a build
+takes seconds.  :func:`load_library` builds at first use into
+``<checkout>/build/repro_torch_kernels/`` — one ``nvcc -c`` per source,
+all started together, then one link — and reuses the library while the
+hash of the sources, headers and flags is unchanged.
 A failed ``nvcc`` raises with its stderr.  Nothing is built or loaded at
 import time.
 """
@@ -35,6 +36,22 @@ _SIGNATURES = (
         _I,
         (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P),
     ),
+    (
+        "repro_lazy_catchup",
+        _I,
+        (_P, _P, _P, _P, _I, _I, _F, _I, _I, _F, _F, _F, _P),
+    ),
+    (
+        "repro_lazy_touch_update",
+        _I,
+        (_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _P),
+    ),
+    ("repro_lazy_flush", _I, (_P, _P, _P, _I, _F, _I, _I, _F, _F, _F, _P)),
+    (
+        "repro_lazy_proba_update",
+        _I,
+        (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _P),
+    ),
 )
 
 _lock = threading.Lock()
@@ -42,7 +59,13 @@ _lib: ctypes.CDLL | None = None
 
 
 def sources() -> list[pathlib.Path]:
+    """The translation units: one ``nvcc -c`` each."""
     return sorted(CSRC.glob("*.cu"))
+
+
+def headers() -> list[pathlib.Path]:
+    """The headers the sources include (``touched.cuh``)."""
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def nvcc_path() -> str:
@@ -60,8 +83,10 @@ def nvcc_path() -> str:
 
 
 def source_hash() -> str:
+    """Hash of the flags, the sources and the headers: a change to any of
+    them names a new library, so a stale one is never loaded."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

@@ -1,10 +1,11 @@
 """Public wrappers around the kernels, dispatching on the tensors' device.
 
-Port of ``repro.kernels.ops`` for the two kernels of the FD-SVRG main path.
-On a CUDA tensor each wrapper launches its hand-written kernel (or
-raises); on a CPU tensor it takes the kernel's plain PyTorch version.
-There is no fallback from one to the other.  The reference's TPU-only
-keywords (``block_rows``, ``interpret``) have no counterpart here.
+Port of ``repro.kernels.ops`` for the kernels of the FD-SVRG main path
+and its lazy inner steps.  On a CUDA tensor each wrapper launches its
+hand-written kernel (or raises); on a CPU tensor it takes the kernel's
+plain PyTorch version.  There is no fallback from one to the other.  The
+reference's TPU-only keywords (``block_rows``, ``interpret``) have no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -12,8 +13,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.kernels import lazy_update as _lazy
 from repro_torch.kernels import prox_update as _prox
 from repro_torch.kernels import sparse_margin as _margin
+from repro_torch.kernels.lazy_update import step_corrections
 
 
 def _route(t: torch.Tensor, kernel: str) -> bool:
@@ -64,19 +67,135 @@ def fused_block_prox_update(
     )
 
 
+# The lazy (delayed-decay) inner steps.  Each updates ``w_block`` (and
+# ``last_block``) IN PLACE and returns it: the port's step stays
+# O(u * nnz_l), with no copy of the block.  ``eta`` is a host float,
+# rounded to float32 here; ``m``, ``stop`` and ``total`` are host ints, so
+# no call waits on the card.
+
+
+def lazy_block_catchup(
+    w_block: torch.Tensor,  # float32[d_block], updated in place
+    last_block: torch.Tensor,  # int32[d_block], updated in place
+    z_block: torch.Tensor,  # float32[d_block]
+    indices: torch.Tensor,  # int32[u, nnz_l], block-LOCAL ids
+    eta: float,  # UNMASKED step size
+    m: int,  # current inner-step index
+    stop: int,  # number of active (unmasked) steps this epoch
+    *,
+    lam: float,  # smooth strength
+    lam1: float = 0.0,
+    lam2: float = 0.0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact-lazy catch-up: replay the deferred decay of every feature
+    touched at inner step ``m``; returns the caught-up block and ``last``."""
+    eta = float(np.float32(eta))
+    if _route(w_block, "lazy_catchup"):
+        return _lazy.lazy_catchup(
+            w_block, last_block, z_block, indices, eta, m, stop, lam, lam1, lam2
+        )
+    return _lazy.lazy_catchup_plain(
+        w_block, last_block, z_block, indices, eta, m, stop, lam, lam1, lam2
+    )
+
+
+def lazy_block_touch_update(
+    w_block: torch.Tensor,  # float32[d_block], caught up at the touched ids
+    indices: torch.Tensor,  # int32[u, nnz_l], block-LOCAL ids
+    values: torch.Tensor,  # float32[u, nnz_l]
+    coef: torch.Tensor,  # float32[u]
+    z_block: torch.Tensor,  # float32[d_block]
+    eta: float,  # masked step size (eta * option mask)
+    *,
+    lam: float,
+    lam1: float = 0.0,
+    lam2: float = 0.0,
+) -> torch.Tensor:
+    """Exact-lazy eager half-step: the dense prox update evaluated only at
+    the touched features — O(u * nnz_l) instead of O(d_block)."""
+    eta = float(np.float32(eta))
+    if _route(w_block, "lazy_touch_update"):
+        return _lazy.lazy_touch_update(
+            w_block, indices, values, coef, z_block, eta, lam, lam1, lam2
+        )
+    return _lazy.lazy_touch_update_plain(
+        w_block, indices, values, coef, z_block, eta, lam, lam1, lam2
+    )
+
+
+def lazy_block_flush(
+    w_block: torch.Tensor,  # float32[d_block], updated in place
+    last_block: torch.Tensor,  # int32[d_block]
+    z_block: torch.Tensor,  # float32[d_block]
+    eta: float,  # UNMASKED step size
+    total: int,  # total inner steps M this epoch
+    stop: int,  # number of active steps
+    *,
+    lam: float,
+    lam1: float = 0.0,
+    lam2: float = 0.0,
+) -> torch.Tensor:
+    """Epoch-end reconciliation: replay every feature's deferred steps so
+    the block equals the dense iterate after all M inner steps."""
+    eta = float(np.float32(eta))
+    if _route(w_block, "lazy_flush"):
+        return _lazy.lazy_flush(
+            w_block, last_block, z_block, eta, total, stop, lam, lam1, lam2
+        )
+    return _lazy.lazy_flush_plain(
+        w_block, last_block, z_block, eta, total, stop, lam, lam1, lam2
+    )
+
+
+def lazy_block_proba_update(
+    w_block: torch.Tensor,  # float32[d_block], updated in place
+    indices: torch.Tensor,  # int32[u, nnz_l], block-LOCAL ids
+    values: torch.Tensor,  # float32[u, nnz_l]
+    coef: torch.Tensor,  # float32[u]
+    z_block: torch.Tensor,  # float32[d_block]
+    corr_block: torch.Tensor,  # float32[d_block] step corrections
+    eta: float,  # masked step size (eta * option mask)
+    *,
+    lam: float,
+    lam1: float = 0.0,
+    lam2: float = 0.0,
+) -> torch.Tensor:
+    """Probabilistic lazy step: touched features only, decay scaled by the
+    per-feature corrections so the expected update is unbiased."""
+    eta = float(np.float32(eta))
+    if _route(w_block, "lazy_proba_update"):
+        return _lazy.lazy_proba_update(
+            w_block, indices, values, coef, z_block, corr_block, eta, lam, lam1, lam2
+        )
+    return _lazy.lazy_proba_update_plain(
+        w_block, indices, values, coef, z_block, corr_block, eta, lam, lam1, lam2
+    )
+
+
 def launch_counts() -> dict[str, int]:
     """Launches of each kernel since the last :func:`reset_launch_counts`."""
-    return {"sparse_margin": _margin.launches, "prox_update": _prox.launches}
+    return {
+        "sparse_margin": _margin.launches,
+        "prox_update": _prox.launches,
+        **_lazy.launches,
+    }
 
 
 def reset_launch_counts() -> None:
     _margin.launches = 0
     _prox.launches = 0
+    for name in _lazy.launches:
+        _lazy.launches[name] = 0
 
 
 __all__ = [
     "fused_block_prox_update",
     "launch_counts",
+    "lazy_block_catchup",
+    "lazy_block_flush",
+    "lazy_block_proba_update",
+    "lazy_block_touch_update",
     "reset_launch_counts",
     "sparse_margins",
+    "step_corrections",
 ]

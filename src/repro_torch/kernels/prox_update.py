@@ -50,6 +50,12 @@ def prox_update_plain(
     contrib = (values * coef[:, None]).reshape(-1)
     g = torch.zeros_like(w_block).index_add_(0, indices.reshape(-1), contrib)
     v = w_block - eta * ((g + z_block) + lam * w_block)
+    return prox_plain(v, eta, lam1, lam2)
+
+
+def prox_plain(v: torch.Tensor, eta: float, lam1: float, lam2: float) -> torch.Tensor:
+    """``sign(v) * max(|v| - eta*lam1, 0) [/ (1 + eta*lam2)]``, the kernel's
+    prox stages (skipped when ``lam1 = lam2 = 0``)."""
     if lam1 != 0.0 or lam2 != 0.0:
         thr = float(_f32(eta) * _f32(lam1))
         v = torch.sign(v) * torch.clamp_min(torch.abs(v) - thr, 0.0)

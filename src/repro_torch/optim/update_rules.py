@@ -2,9 +2,9 @@
 
 Port of ``repro.optim.update_rules`` for the main path: the context, the
 rule protocol, :func:`run_with_rule`, and :class:`SVRGRule` for a scalar
-output (k = 1).  Multi-output ``w`` (ROADMAP queue 1, item 6), lazy
-updates (item 4) and the SAGA / BCD rules (item 6) come with later
-slices and raise ``NotImplementedError`` here.
+output (k = 1), dense or lazy.  Multi-output ``w`` and the SAGA / BCD
+rules (ROADMAP queue 1, item 6) come with a later slice; ``[N, k > 1]``
+labels raise ``NotImplementedError`` here.
 
 Import direction, as in the reference: this module imports the building
 blocks from :mod:`repro_torch.core.fdsvrg`; the drivers there import this
@@ -34,6 +34,8 @@ from repro_torch.core.fdsvrg import (
     _default_fd_abort,
     _full_grad_blocks,
     _inner_epoch,
+    _lazy_corrections,
+    _lazy_inner_epoch,
 )
 from repro_torch.data.block_csr import BlockCSR
 from repro_torch.dist import COSTS, Collectives
@@ -174,8 +176,11 @@ def run_with_rule(
 class SVRGRule(UpdateRule):
     """Prox-SVRG: the snapshot pair (z, s0) is the whole state.
 
-    ``use_kernels`` (default ``True``) runs the two hot paths through
-    :mod:`repro_torch.kernels.ops`; ``lazy_updates`` must be ``None``.
+    ``use_kernels`` (default ``True``) runs the hot paths through
+    :mod:`repro_torch.kernels.ops`.  ``lazy_updates`` ("exact" | "proba")
+    swaps the dense inner epoch for the delayed-decay one
+    (:func:`~repro_torch.core.fdsvrg._lazy_inner_epoch`); it is
+    block-local, so the metering is the dense epoch's.
     """
 
     use_kernels: bool = True
@@ -204,7 +209,8 @@ class SVRGRule(UpdateRule):
         bd, cfg, backend, loss, reg = (
             ctx.block_data, ctx.cfg, ctx.backend, ctx.loss, ctx.reg,
         )
-        use_kernels = self.use_kernels
+        use_kernels, lazy_updates = self.use_kernels, self.lazy_updates
+        corrections = _lazy_corrections(bd, ctx.n, ctx.u, lazy_updates)
         n, u, nnz, q = ctx.n, ctx.u, ctx.nnz, ctx.q
 
         def epoch(t, rng, w, z_data, s0, eta_scale=1.0):
@@ -216,9 +222,15 @@ class SVRGRule(UpdateRule):
             eta = cfg.eta * eta_scale
             samples = draw_samples(rng, n, cfg.inner_steps, u)
             mask = option_mask(rng, cfg.inner_steps, cfg.option)
-            w = _inner_epoch(
-                bd, w, z_data, s0, samples, eta, mask, loss, reg, use_kernels
-            )
+            if lazy_updates is not None:
+                w = _lazy_inner_epoch(
+                    bd, w, z_data, s0, samples, eta, mask, corrections, loss, reg,
+                    use_kernels, lazy_updates,
+                )
+            else:
+                w = _inner_epoch(
+                    bd, w, z_data, s0, samples, eta, mask, loss, reg, use_kernels
+                )
             # Inner-loop communication (Alg 1 lines 9-11): one tree round
             # per mini-batch of u margins; M steps, in aggregate.
             if backend is not None:

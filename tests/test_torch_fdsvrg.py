@@ -162,7 +162,7 @@ def test_news20_slice_end_to_end_matches_reference():
                         t_losses.LOSSES[t_pre.loss], t_pre.regularizer(), TConfig(**kw),
                         device="cpu")
     _assert_runs_agree(ref, port)
-    assert ops.launch_counts() == {"sparse_margin": 0, "prox_update": 0}
+    assert set(ops.launch_counts().values()) == {0}  # the CPU launches no kernel
     assert port.history[-1].objective < port.history[0].objective
     per_outer = 2 * 8 * t_data.num_instances + 200 * 2 * 8
     assert port.meter.total_scalars == 2 * per_outer
@@ -202,9 +202,9 @@ def test_objective_and_full_gradient_match_global_layout():
 def test_unported_options_raise():
     _, t_data = _data()
     _, tcfg = _cfgs("I", 1, outers=1)
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
+    with pytest.raises(ValueError, match="lazy_updates must be None, 'exact', or 'proba'"):
         t_run_fdsvrg(t_data, t_balanced(t_data.dim, 2), t_losses.logistic, t_losses.l2(1e-3),
-                     tcfg, lazy_updates="exact", device="cpu")
+                     tcfg, lazy_updates="bogus", device="cpu")
     bd = BlockCSR.from_padded(t_data, t_balanced(t_data.dim, 1))
     import dataclasses
 

@@ -1,4 +1,4 @@
-"""The port's two kernels, held against the reference's Pallas kernels.
+"""The port's dense-step kernels, held against the reference's Pallas kernels.
 
 On the CPU each ``repro_torch.kernels.ops`` wrapper takes its kernel's
 plain PyTorch version; these tests hold that version against the
@@ -26,6 +26,7 @@ import torch
 from repro.kernels import ops as r_ops
 
 from repro_torch.kernels import _build, ops
+from repro_torch.kernels import lazy_update as lazy_mod
 from repro_torch.kernels import prox_update as prox_mod
 from repro_torch.kernels import sparse_margin as margin_mod
 
@@ -203,21 +204,40 @@ def test_ops_refuses_unknown_devices():
 
 def test_launch_counters_reset():
     margin_mod.launches, prox_mod.launches = 5, 7
-    assert ops.launch_counts() == {"sparse_margin": 5, "prox_update": 7}
+    for k, name in enumerate(lazy_mod.launches):
+        lazy_mod.launches[name] = k + 1
+    assert ops.launch_counts() == {
+        "sparse_margin": 5, "prox_update": 7, "lazy_catchup": 1,
+        "lazy_touch_update": 2, "lazy_flush": 3, "lazy_proba_update": 4,
+    }
     ops.reset_launch_counts()
-    assert ops.launch_counts() == {"sparse_margin": 0, "prox_update": 0}
+    assert ops.launch_counts() == {
+        "sparse_margin": 0, "prox_update": 0, "lazy_catchup": 0,
+        "lazy_touch_update": 0, "lazy_flush": 0, "lazy_proba_update": 0,
+    }
 
 
 def test_kernel_sources_declare_their_c_entry_points_and_origin():
     names = [s.name for s in _build.sources()]
-    assert names == ["prox_update.cu", "sparse_margin.cu"]
-    text = {s.name: s.read_text() for s in _build.sources()}
+    assert names == ["lazy_update.cu", "prox_update.cu", "sparse_margin.cu"]
+    assert [h.name for h in _build.headers()] == ["touched.cuh"]
+    text = {s.name: s.read_text() for s in _build.sources() + _build.headers()}
+    entries = [e for e, _, _ in _build._SIGNATURES]
+    assert entries == ["repro_sparse_margin", "repro_prox_update", "repro_lazy_catchup",
+                       "repro_lazy_touch_update", "repro_lazy_flush",
+                       "repro_lazy_proba_update"]
     for entry, _, argtypes in _build._SIGNATURES:
         src = next(t for t in text.values() if f'extern "C" int {entry}(' in t)
         params = re.search(rf"{entry}\((.*?)\)\s*{{", src, re.S).group(1)
         assert params.count(",") + 1 == len(argtypes), entry
     assert "repro/kernels/sparse_margin.py" in text["sparse_margin.cu"]
     assert "repro/kernels/prox_update.py" in text["prox_update.cu"]
+    for line in (":125", ":177", ":224", ":266"):
+        assert f"lazy_update.py{line}" in text["lazy_update.cu"]
+    # The touched pass lives once, in the header both kernels include.
+    for name in ("prox_update.cu", "lazy_update.cu"):
+        assert '#include "touched.cuh"' in text[name]
+        assert "__ballot_sync" not in text[name]
     for src in text.values():
         includes = [ln for ln in src.splitlines() if ln.startswith("#include")]
         assert includes and not any("torch" in ln or "ATen" in ln for ln in includes)
@@ -227,11 +247,26 @@ def test_build_flags_and_hash(monkeypatch, tmp_path):
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     h = _build.source_hash()
     assert h == _build.source_hash() and len(h) == 16
-    for src in _build.sources():
+    for src in _build.sources() + _build.headers():
         (tmp_path / src.name).write_text(src.read_text() + "\n// changed\n")
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     assert _build.source_hash() != h
     assert _build.library_path().name.endswith(f"_{_build.source_hash()}.so")
+
+
+def test_source_hash_covers_the_headers(monkeypatch, tmp_path):
+    """A change to a header alone names a new library: a stale build of
+    the sources that include it is never loaded."""
+    for src in _build.sources() + _build.headers():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    h = _build.source_hash()
+    header = tmp_path / "touched.cuh"
+    header.write_text(header.read_text() + "\n// changed\n")
+    assert _build.source_hash() != h
+    # The header is hashed but never compiled on its own.
+    assert [p.name for p in _build.sources()] == \
+        ["lazy_update.cu", "prox_update.cu", "sparse_margin.cu"]
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
