@@ -15,6 +15,13 @@ Then the lazy paths: ``run_fdsvrg(lazy_updates="exact")`` and
 ``"proba"`` and ``run_serial_svrg(lazy_updates="exact")`` with exact
 meter and launch counts, one exact-lazy epoch held bitwise against the
 dense epoch on the kernel path, and a profile of the lazy epoch.
+Then the dense-layout step: block 0 densified into a [169,399 x 19,954]
+matrix, the composed step of ``tests/test_kernels.py:159`` (margins
+through ``margins_dense``, ``loss_and_grad``, ``svrg_dense_update``) run
+K steps beside its BlockCSR twin (``sparse_margins``, ``loss_and_grad``,
+``fused_block_update``) with exact launch counts, and the four dense-step
+kernels held against their plain versions at full width and at one
+step's shapes.
 Each phase prints one JSON line; the last line is the result object
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 without printing it, as does a machine without a CUDA device or a
@@ -47,6 +54,8 @@ PLAIN_CHECK_STEPS = 500
 PROFILE_STEPS = 500
 LAZY_CHECK_STEPS = 500  # the lazy kernels are checked at the state these leave
 LAZY_VS_DENSE_STEPS = 1000
+DENSE_STEPS = 200  # K inner steps of the dense-layout step and its BlockCSR twin
+KDD2010_N, KDD2010_D = 19_264_097, 29_890_095  # TABLE1_FULL["kdd2010"]: N and d
 PROBA_ETA = 0.05  # the reference's news20 proba run (tests/test_lazy_updates.py)
 SEED = 0
 
@@ -65,6 +74,26 @@ RUN_RTOL, RUN_W_RTOL = 1e-5, 1e-3
 # the plain versions add duplicate ids with index_add_'s atomics.  The
 # counters `last` must match exactly.
 LAZY_RTOL, LAZY_ATOL = 1e-6, 1e-7
+# The dense-layout kernels vs plain.  fd_matvec: |d| <= 1e-5 * sum_k |w_k *
+# D_kn| per column (slices vs cuBLAS's order).  logistic_grad: within 4 ulp
+# of max(|plain|, 1) (expf / logf vs PyTorch's exp / log; log(1 + tiny)
+# makes one ulp of the sum absolute).  svrg_update: bitwise.  fused_update:
+# bitwise against the prox_update kernel at lam1 = lam2 = 0, and against
+# its plain version within the touched pass's bound, LAZY_ATOL + LAZY_RTOL
+# * (|w| + |plain| + eta * (|g| + |z| + lam * |w|)) with |g| the sum of the
+# feature's |contributions| (index_add_ adds the rows' repeated ids, up to
+# 640 copies of one id at u = 8, with atomics in another order).
+MATVEC_RTOL = 1e-5
+LOSS_ULPS = 4
+# dense_step: the dense and sparse snapshot margins, |d| <= 1e-5 *
+# sum_k |w[idx] * val| per row (a column of D sums a row's repeated ids
+# before the product); loss_and_grad vs the port's logaddexp / sigmoid
+# loss, rtol = atol = 1e-5 (the reference's own test); after K steps the
+# two layouts' w within 1e-4 * max|w| (each step rounds the update's terms
+# in another order).
+DENSE_MARGIN_RTOL = 1e-5
+LOSS_RTOL = 1e-5
+DENSE_STEP_W_RTOL = 1e-4
 # Float operations per replayed or touched feature, for bound_ms: the
 # dense step 5 (+4 with a prox, +1 with elastic net); the proba step 6
 # (+6 with a prox, +4 with elastic net).
@@ -153,6 +182,21 @@ def first_difference(torch, got, want, w, z) -> dict | None:
             "w": float(w[j]), "z": float(z[j])}
 
 
+def expected_launches(ops, **nonzero: int) -> dict[str, int]:
+    """The launch counts a path must leave: 0 for every kernel the port
+    counts, but for the path's nonzero closed forms."""
+    want = dict.fromkeys(ops.launch_counts(), 0)
+    require(set(nonzero) <= set(want), f"unknown kernels {set(nonzero) - set(want)}")
+    want.update(nonzero)
+    return want
+
+
+def ulp(torch, x):
+    """The float32 spacing above ``|x|``."""
+    a = torch.abs(x.float())
+    return torch.nextafter(a, torch.full_like(a, math.inf)) - a
+
+
 def step_flops(lam1: float, lam2: float, proba: bool = False) -> float:
     if proba:
         return 6.0 + (6.0 if lam1 or lam2 else 0.0) + (4.0 if lam2 else 0.0)
@@ -194,9 +238,13 @@ def run() -> dict:
     from repro_torch.data import datasets
     from repro_torch.data.block_csr import BlockCSR
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import fd_matvec as matvec_mod
+    from repro_torch.kernels import fused_update as fused_mod
     from repro_torch.kernels import lazy_update as lazy_mod
+    from repro_torch.kernels import logistic_grad as logistic_mod
     from repro_torch.kernels import prox_update as prox_mod
     from repro_torch.kernels import sparse_margin as margin_mod
+    from repro_torch.kernels import svrg_update as svrg_mod
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -479,11 +527,9 @@ def run() -> dict:
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     per_outer = 2 * Q * n + INNER_STEPS * 2 * Q * u
-    expected_counts = {
-        "sparse_margin": Q * (OUTERS + 1) + Q * INNER_STEPS * OUTERS,
-        "prox_update": Q * INNER_STEPS * OUTERS,
-        "lazy_catchup": 0, "lazy_touch_update": 0, "lazy_flush": 0, "lazy_proba_update": 0,
-    }
+    expected_counts = expected_launches(
+        ops, sparse_margin=Q * (OUTERS + 1) + Q * INNER_STEPS * OUTERS,
+        prox_update=Q * INNER_STEPS * OUTERS)
     objs = [h.objective for h in res.history]
     emit({"phase": "main_path", "entry": "run_fdsvrg", "config": cfg_preset.name,
           "d": data.dim, "N": n, "q": Q, "u": u, "eta": cfg.eta, "reg": reg.name,
@@ -548,9 +594,8 @@ def run() -> dict:
     ser = run_serial_svrg(None, loss, reg, short, block_data=bd1, use_kernels=True)
     torch.cuda.synchronize()
     ser_counts = ops.launch_counts()
-    ser_expected = {"sparse_margin": 2 + PLAIN_CHECK_STEPS, "prox_update": PLAIN_CHECK_STEPS,
-                    "lazy_catchup": 0, "lazy_touch_update": 0, "lazy_flush": 0,
-                    "lazy_proba_update": 0}
+    ser_expected = expected_launches(ops, sparse_margin=2 + PLAIN_CHECK_STEPS,
+                                     prox_update=PLAIN_CHECK_STEPS)
     emit({"phase": "serial_path", "entry": "run_serial_svrg", "nnz_l": bd1.nnz_budgets[0],
           "inner_steps": PLAIN_CHECK_STEPS, "objectives": ser.objectives().tolist(),
           "launches": ser_counts, "expected_launches": ser_expected,
@@ -567,8 +612,7 @@ def run() -> dict:
     acc_plain = float(torch.mean((torch.sign(plain_scores) == bd1.labels).float()))
     emit({"phase": "serving", "rows": n, "train_accuracy": acc,
           "train_accuracy_plain": acc_plain, "launches": serve_counts})
-    require(serve_counts == {"sparse_margin": 1, "prox_update": 0, "lazy_catchup": 0,
-                             "lazy_touch_update": 0, "lazy_flush": 0, "lazy_proba_update": 0},
+    require(serve_counts == expected_launches(ops, sparse_margin=1),
             f"serving launches {serve_counts}")
     require(acc > 0.5 and abs(acc - acc_plain) <= 1.0 / n + 1e-12,
             f"serving accuracy {acc} (plain {acc_plain})")
@@ -583,11 +627,10 @@ def run() -> dict:
     torch.cuda.synchronize()
     lazy_wall = time.perf_counter() - t0
     lazy_counts = ops.launch_counts()
-    lazy_expected = {
-        "sparse_margin": Q * (OUTERS + 1) + Q * INNER_STEPS * OUTERS, "prox_update": 0,
-        "lazy_catchup": Q * INNER_STEPS * OUTERS, "lazy_touch_update": Q * INNER_STEPS * OUTERS,
-        "lazy_flush": Q * OUTERS, "lazy_proba_update": 0,
-    }
+    lazy_expected = expected_launches(
+        ops, sparse_margin=Q * (OUTERS + 1) + Q * INNER_STEPS * OUTERS,
+        lazy_catchup=Q * INNER_STEPS * OUTERS, lazy_touch_update=Q * INNER_STEPS * OUTERS,
+        lazy_flush=Q * OUTERS)
     lazy_objs = [h.objective for h in lazy_res.history]
     lazy_rel = float(np.max(np.abs(np.array(lazy_objs) - np.array(objs)) / np.abs(objs)))
     emit({"phase": "lazy_exact_path", "entry": "run_fdsvrg(lazy_updates='exact')",
@@ -646,10 +689,8 @@ def run() -> dict:
     torch.cuda.synchronize()
     proba_wall = time.perf_counter() - t0
     proba_counts = ops.launch_counts()
-    proba_expected = {
-        "sparse_margin": Q * 2 + Q * INNER_STEPS, "prox_update": 0, "lazy_catchup": 0,
-        "lazy_touch_update": 0, "lazy_flush": 0, "lazy_proba_update": Q * INNER_STEPS,
-    }
+    proba_expected = expected_launches(ops, sparse_margin=Q * 2 + Q * INNER_STEPS,
+                                       lazy_proba_update=Q * INNER_STEPS)
     dense_proba_eta = run_fdsvrg(None, part8, loss, reg, proba_cfg, block_data=bd8)
     proba_obj = proba_res.history[0].objective
     emit({"phase": "lazy_proba_path", "entry": "run_fdsvrg(lazy_updates='proba')",
@@ -671,9 +712,9 @@ def run() -> dict:
     lser = run_serial_svrg(None, loss, reg, short, block_data=bd1, lazy_updates="exact")
     torch.cuda.synchronize()
     lser_counts = ops.launch_counts()
-    lser_expected = {"sparse_margin": 2 + PLAIN_CHECK_STEPS, "prox_update": 0,
-                     "lazy_catchup": PLAIN_CHECK_STEPS, "lazy_touch_update": PLAIN_CHECK_STEPS,
-                     "lazy_flush": 1, "lazy_proba_update": 0}
+    lser_expected = expected_launches(
+        ops, sparse_margin=2 + PLAIN_CHECK_STEPS, lazy_catchup=PLAIN_CHECK_STEPS,
+        lazy_touch_update=PLAIN_CHECK_STEPS, lazy_flush=1)
     lser_rel = float(np.max(np.abs(lser.objectives() - ser.objectives())
                             / np.abs(ser.objectives())))
     emit({"phase": "lazy_serial_path", "entry": "run_serial_svrg(lazy_updates='exact')",
@@ -714,10 +755,211 @@ def run() -> dict:
           "walls_s": walls,
           "inner_steps_per_s": {k: PROFILE_STEPS / (sum(v) / len(v)) for k, v in walls.items()}})
 
-    # 13. The kernels line.  Launches: sparse_margin and prox_update from
+    # 13. The dense-layout step: the composed step of tests/test_kernels.py:159
+    # at full width.  Block 0 densified: D[id, row] holds the row's values at
+    # that local id, its repeated ids coalesced on the host first (flat
+    # order, np.add.at), so the device scatter has no duplicates and D is
+    # deterministic.  Then a snapshot held across layouts, and K inner steps
+    # from the same w and z in the dense layout (margins_dense on column i,
+    # loss_and_grad, svrg_dense_update) and in BlockCSR (sparse_margins on
+    # row i, loss_and_grad, fused_block_update).
+    require(torch.backends.cuda.matmul.allow_tf32 is False,
+            "TF32 is on: the plain products would not be float32")
+    t0 = time.perf_counter()
+    flat_ids = idx0.cpu().numpy().astype(np.int64)
+    keys = (flat_ids * n + np.arange(n, dtype=np.int64)[:, None]).reshape(-1)
+    uniq, inverse = np.unique(keys, return_inverse=True)
+    sums = np.zeros(uniq.shape, dtype=np.float32)
+    np.add.at(sums, inverse.reshape(-1), val0.cpu().numpy().reshape(-1))
+    entry_keys = torch.from_numpy(uniq).to(dev)
+    entry_vals = torch.from_numpy(sums).to(dev)
+    entry_ids, entry_rows = entry_keys // n, entry_keys % n
+    D = torch.zeros((d0, n), dtype=torch.float32, device=dev)
+    D.view(-1)[entry_keys] = entry_vals
+    torch.cuda.synchronize()
+    densify_s = time.perf_counter() - t0
+    w_blk = res.w[:d0].contiguous()
+    labels = bd8.labels
+    lam, eta_d = reg.lam, cfg.eta
+    step_rows = draw_samples(np.random.default_rng(SEED + 3), n, DENSE_STEPS, 1)[:, 0].tolist()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    s0 = ops.margins_dense(w_blk, D)
+    s0_sparse = ops.sparse_margins(idx0, val0, w_blk)
+    loss0, dl0 = ops.loss_and_grad(s0, labels)
+    z_d = D @ (dl0 / n)  # plain, as the reference computes it outside any kernel
+    w_dense, w_sparse = w_blk, w_blk
+    for i in step_rows:
+        col = D[:, i:i + 1].contiguous()
+        _, dl_i = ops.loss_and_grad(ops.margins_dense(w_dense, col), labels[i:i + 1])
+        g_dense = (dl_i[0] - dl0[i]) * col[:, 0]
+        w_dense = ops.svrg_dense_update(w_dense, g_dense, z_d, eta=eta_d, lam=lam)
+        ri, rv = idx0[i:i + 1], val0[i:i + 1]
+        _, dl_r = ops.loss_and_grad(ops.sparse_margins(ri, rv, w_sparse), labels[i:i + 1])
+        w_sparse = ops.fused_block_update(w_sparse, ri, rv, dl_r - dl0[i:i + 1], z_d, eta_d,
+                                          lam=lam)
+    torch.cuda.synchronize()
+    dense_wall = time.perf_counter() - t0
+    dense_counts = ops.launch_counts()
+    dense_expected = expected_launches(
+        ops, fd_matvec=1 + DENSE_STEPS, logistic_grad=1 + 2 * DENSE_STEPS,
+        svrg_update=DENSE_STEPS, fused_update=DENSE_STEPS, sparse_margin=1 + DENSE_STEPS)
+    margin_scale = torch.sum(torch.abs(w_blk[idx0] * val0), dim=-1)
+    margin_err = torch.abs(s0 - s0_sparse)
+    margin_ratio = float(torch.max(margin_err / torch.clamp_min(DENSE_MARGIN_RTOL * margin_scale,
+                                                                1e-30)))
+    loss_ref, dloss_ref = loss.value(s0, labels), loss.dvalue(s0, labels)
+    loss_err = max(float(torch.max(torch.abs(a - b) / (LOSS_RTOL + LOSS_RTOL * torch.abs(b))))
+                   for a, b in ((loss0, loss_ref), (dl0, dloss_ref)))
+    w_gap = float(torch.max(torch.abs(w_dense - w_sparse)))
+    w_scale = float(torch.max(torch.abs(w_sparse)))
+    w_moved = float(torch.max(torch.abs(w_dense - w_blk)))
+    emit({"phase": "dense_step", "entry": "ops.margins_dense / loss_and_grad / "
+          "svrg_dense_update vs ops.sparse_margins / loss_and_grad / fused_block_update",
+          "block": 0, "d_block": d0, "N": n, "D_elements": d0 * n, "lam": lam, "eta": eta_d,
+          "steps": DENSE_STEPS, "stored_entries": int(keys.size),
+          "distinct_entries": int(uniq.size), "densify_s": densify_s,
+          "snapshot_margin_max_abs_err": float(margin_err.max()),
+          "snapshot_margin_err_over_tol": margin_ratio,
+          "loss_err_over_tol": loss_err, "w_max_abs_gap": w_gap, "w_max_abs": w_scale,
+          "w_max_abs_moved": w_moved,
+          "tolerance": f"margins |d| <= {DENSE_MARGIN_RTOL:g} * sum|w[idx]*val|; loss rtol = "
+                       f"atol = {LOSS_RTOL:g}; w |d| <= {DENSE_STEP_W_RTOL:g} * max|w|",
+          "launches": dense_counts, "expected_launches": dense_expected,
+          "wall_s": dense_wall, "steps_per_s_both_twins": DENSE_STEPS / dense_wall})
+    require(bool(torch.all(torch.isfinite(w_dense))) and w_moved > 0.0,
+            "dense_step: w not finite or not moved")
+    require(margin_ratio <= 1.0, f"dense_step: snapshot margins {margin_ratio} of tolerance")
+    require(loss_err <= 1.0, f"dense_step: loss_and_grad vs the logistic loss {loss_err}")
+    require(w_gap <= DENSE_STEP_W_RTOL * w_scale, f"dense_step: w gap {w_gap} of {w_scale}")
+    require(dense_counts == dense_expected, f"dense_step launches {dense_counts} != {dense_expected}")
+
+    # 14. The dense-layout kernels vs plain, at the shapes the step gives
+    # them and at kdd2010's N and d.
+    dense_rows = {}
+
+    def dense_check(kernel, shape, got, want, tol, fn, plain_fn, library_fn, iters, nbytes,
+                    flops, exact=False, **extra):
+        err = torch.abs(got - want)
+        ratio = 0.0 if exact else float(torch.max(err / torch.clamp_min(tol, 1e-30)))
+        ok = bool(torch.equal(got, want)) if exact else bool(torch.all(err <= tol))
+        b_ms, b_by = bound_ms(nbytes, flops)
+        row = {"phase": "kernel_check", "kernel": kernel, "shape": shape,
+               "max_abs_err": float(err.max()), "max_err_over_tol": ratio,
+               "bitwise": bool(torch.equal(got, want)), **extra,
+               "kernel_ms": device_ms(torch, fn, iters),
+               "plain_ms": device_ms(torch, plain_fn, iters),
+               "library_ms": None if library_fn is None else device_ms(torch, library_fn, iters),
+               "host_ms": host_ms(torch, fn, iters), "bound_ms": b_ms, "bound_by": b_by}
+        emit(row)
+        require(ok, f"{kernel} {shape}: {row}")
+        dense_rows[(kernel, shape)] = row
+
+    def matvec_check(shape, w, data, scale, library, iters):
+        got = matvec_mod.fd_matvec(w, data)
+        require(torch.equal(got, matvec_mod.fd_matvec(w, data)), f"fd_matvec {shape}: not deterministic")
+        rows_d, cols = data.shape
+        nbytes = data.element_size() * (rows_d * cols + rows_d) + 4 * cols
+        dense_check("fd_matvec", shape, got, matvec_mod.fd_matvec_plain(w, data),
+                    MATVEC_RTOL * scale,
+                    lambda: matvec_mod.fd_matvec(w, data),
+                    lambda: matvec_mod.fd_matvec_plain(w, data),
+                    (lambda: torch.mv(data.t(), w)) if library else None,
+                    iters, nbytes, 2.0 * rows_d * cols, dtype=str(data.dtype).split(".")[1],
+                    slice_rows=matvec_mod.slice_rows(rows_d, cols, sms),
+                    tolerance=f"|d| <= {MATVEC_RTOL:g} * sum_k |w_k * D_kn|")
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # sum_k |w_k * D_kn| from the coalesced entries (D's nonzeros), so no
+    # |D| of block size is allocated.
+    col_scale = torch.zeros(n, device=dev).index_add_(
+        0, entry_rows, torch.abs(w_blk[entry_ids] * entry_vals))
+    matvec_check(f"block 0 f32 [{d0} x {n}]", w_blk, D, col_scale, True, 10)
+    i0 = step_rows[0]
+    col0 = D[:, i0:i0 + 1].contiguous()
+    matvec_check(f"step f32 [{d0} x 1]", w_blk, col0, col_scale[i0:i0 + 1], True, 200)
+    D_bf16 = D.to(torch.bfloat16)
+    del D, col0, z_d, g_dense
+    torch.cuda.empty_cache()
+    w_bf16 = w_blk.to(torch.bfloat16)
+    col_scale_bf16 = torch.zeros(n, device=dev).index_add_(
+        0, entry_rows, torch.abs(w_bf16[entry_ids].float() * entry_vals.to(torch.bfloat16).float()))
+    matvec_check(f"block 0 bf16 [{d0} x {n}]", w_bf16, D_bf16, col_scale_bf16, False, 10)
+    del D_bf16
+    torch.cuda.empty_cache()
+
+    big = torch.from_numpy(rng.normal(0.0, 3.0, size=KDD2010_N).astype(np.float32)).to(dev)
+    big_y = torch.from_numpy(np.where(rng.random(KDD2010_N) < 0.5, -1.0, 1.0)
+                             .astype(np.float32)).to(dev)
+    # The step shape N = 1 is the first dense step's: the margin of column i0
+    # at w_blk (that step's w) and its label.  It is 2K of the path's 1 + 2K
+    # launches.
+    both_dtypes = (torch.float32, torch.bfloat16)
+    for label, s_in, y_in, dtypes in (("snapshot N", s0, labels, both_dtypes),
+                                      ("kdd2010 N", big, big_y, both_dtypes),
+                                      ("step N", s0[i0:i0 + 1], labels[i0:i0 + 1],
+                                       (torch.float32,))):
+        for dtype in dtypes:
+            s_t, y_t = s_in.to(dtype), y_in.to(dtype)
+            got = logistic_mod.logistic_grad(s_t, y_t)
+            want = logistic_mod.logistic_grad_plain(s_t, y_t)
+            tol = [LOSS_ULPS * ulp(torch, torch.clamp_min(torch.abs(v), 1.0)) for v in want]
+            both = (torch.cat(got), torch.cat(want), torch.cat(tol))
+            size = s_t.numel()
+            dense_check("logistic_grad", f"{label} = {size} {str(dtype).split('.')[1]}", *both,
+                        lambda: logistic_mod.logistic_grad(s_t, y_t),
+                        lambda: logistic_mod.logistic_grad_plain(s_t, y_t), None,
+                        200 if size < 10**6 else 20, size * (2 * s_t.element_size() + 8),
+                        10.0 * size,
+                        tolerance=f"|d| <= {LOSS_ULPS} ulp of max(|plain|, 1), both outputs")
+    del big, big_y
+
+    for size in (d0, KDD2010_D):
+        vecs = [torch.from_numpy(rng.normal(0.0, 0.1, size=size).astype(np.float32)).to(dev)
+                for _ in range(3)]
+        for lam_c in (1e-4, 0.0):
+            got = svrg_mod.svrg_update(*vecs, eta_d, lam_c)
+            dense_check("svrg_update", f"d = {size}, lam = {lam_c:g}", got,
+                        svrg_mod.svrg_update_plain(*vecs, eta_d, lam_c), None,
+                        lambda: svrg_mod.svrg_update(*vecs, eta_d, lam_c),
+                        lambda: svrg_mod.svrg_update_plain(*vecs, eta_d, lam_c), None,
+                        200 if size < 10**6 else 20, 16 * size, 5.0 * size, exact=True,
+                        tolerance="bitwise")
+    del vecs
+
+    for u_ck in (1, 8):
+        idx, val = idx0[sampled[:u_ck]], val0[sampled[:u_ck]]
+        coef = torch.from_numpy(rng.normal(0.0, 0.5, size=u_ck).astype(np.float32)).to(dev)
+        g_abs = torch.zeros(d0, device=dev).index_add_(
+            0, idx.reshape(-1).long(), torch.abs(val * coef[:, None]).reshape(-1))
+        for lam_c in (1e-4, 0.0):
+            for case, eta_c in (("unmasked", eta), ("masked", 0.0)):
+                args = (w0, idx, val, coef, z0, eta_c, lam_c)
+                got = fused_mod.fused_update(*args)
+                same_prox = bool(torch.equal(got, prox_mod.prox_update(*args, 0.0, 0.0)))
+                require(same_prox, f"fused_update u={u_ck} lam={lam_c} {case}: != prox_update")
+                want = fused_mod.fused_update_plain(*args)
+                entries = idx.numel()
+                dense_check("fused_update", f"block 0, u = {u_ck}, lam = {lam_c:g}, {case}", got,
+                            want, LAZY_ATOL + LAZY_RTOL * (
+                                torch.abs(w0) + torch.abs(want) + eta_c * (
+                                    g_abs + torch.abs(z0) + lam_c * torch.abs(w0))),
+                            lambda: fused_mod.fused_update(*args),
+                            lambda: fused_mod.fused_update_plain(*args), None, 200,
+                            12 * d0 + 8 * entries + 4 * u_ck, 5.0 * d0 + 2.0 * entries,
+                            equals_prox_update_kernel=same_prox,
+                            n_differ=int(torch.count_nonzero(got != want)),
+                            tolerance=f"bitwise vs prox_update(lam1 = lam2 = 0); vs plain "
+                                      f"|d| <= {LAZY_ATOL:g} + {LAZY_RTOL:g} * (|w| + |plain| "
+                                      f"+ eta * (|g| + |z| + lam * |w|))")
+
+    # 15. The kernels line.  Launches: sparse_margin and prox_update from
     # the dense main path, the exact-lazy kernels from the lazy_exact_path
-    # run, lazy_proba_update from the lazy_proba_path run.  Times at the
-    # main path's shapes (block 0, u = 1, its regularizer, unmasked).
+    # run, lazy_proba_update from the lazy_proba_path run, the dense-layout
+    # kernels from the dense_step run.  Times at the main path's shapes
+    # (block 0, u = 1, its regularizer, unmasked) and the dense step's
+    # (block 0's full f32 matrix, one step's N = 1, d_block).
     snap = margin_rows["snapshot R=N"]
     step = prox_rows[(u, reg.name)]
 
@@ -730,6 +972,16 @@ def run() -> dict:
                 "ms": row["kernel_ms"], "host_ms": row["host_ms"], "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                 "library_ms": None, "shape": shape}
+
+    def dense_entry(name, line, shape):
+        row = dense_rows[(name, shape)]
+        return {"name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                "replaces": f"src/repro/kernels/{name}.py:{line}",
+                "launches": dense_counts[name], "max_abs_err": row["max_abs_err"],
+                "ms": row["kernel_ms"], "host_ms": row["host_ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"], "shape": shape}
     emit({"kernels": [
         {"name": "sparse_margin", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/sparse_margin.cu",
@@ -753,6 +1005,10 @@ def run() -> dict:
                    f"block 0: d_l={d0}, after a {m_ck}-step epoch, {reg.name}"),
         lazy_entry("lazy_proba_update", 266, proba_counts["lazy_proba_update"],
                    f"block 0: d_l={d0}, u={u}, {reg.name}"),
+        dense_entry("fused_update", 73, f"block 0, u = {u}, lam = {reg.lam:g}, unmasked"),
+        dense_entry("fd_matvec", 61, f"block 0 f32 [{d0} x {n}]"),
+        dense_entry("logistic_grad", 46, "step N = 1 float32"),
+        dense_entry("svrg_update", 49, f"d = {d0}, lam = {reg.lam:g}"),
     ]})
     print(card, flush=True)
     return {"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

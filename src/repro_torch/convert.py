@@ -2,7 +2,7 @@
 
 The JAX package's arrays go through ``numpy.asarray`` on the caller's
 side; these functions build the port's :class:`PaddedCSR`,
-:class:`BlockCSR` and initial ``w`` from them, checking what the port's
+:class:`BlockCSR`, initial ``w`` and dense problem from them, checking what the port's
 kernels take on trust (dtypes, shapes, ids inside their block).  The
 tests use them to feed both packages identical bytes.
 """
@@ -82,3 +82,18 @@ def init_w(w: np.ndarray) -> torch.Tensor:
     if t.dim() != 1:
         raise ValueError(f"w must be 1-D, got shape {tuple(t.shape)}")
     return t
+
+
+def dense_problem(
+    D: np.ndarray, y: np.ndarray, device: torch.device | str = "cpu"
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The dense layout's data ``D [d, N]`` and labels ``y [N]`` on ``device``.
+
+    Float32 arrays, as ``make_dense_classification`` makes them; ``D``
+    comes back contiguous, the layout ``ops.margins_dense`` takes.
+    """
+    data = _tensor(D, np.float32)
+    labels = _tensor(y, np.float32)
+    if data.dim() != 2 or labels.shape != (data.shape[1],):
+        raise ValueError(f"D {tuple(data.shape)} vs y {tuple(labels.shape)}: want [d, N] and [N]")
+    return data.contiguous().to(device), labels.to(device)

@@ -1,9 +1,10 @@
 """Synthetic high-dimensional sparse linear-classification data (d >> N).
 
-Port of ``repro.data.synthetic.make_sparse_classification``: the same
-numpy draws in the same order, so the generated bytes are identical to
-the reference's for the same parameters; only the container differs
-(torch tensors on the CPU).
+Port of ``repro.data.synthetic.make_sparse_classification`` and
+``make_dense_classification``: the same numpy draws in the same order, so
+the generated bytes are identical to the reference's for the same
+parameters; only the container differs (torch tensors on the CPU for the
+sparse set, numpy arrays for the dense one, as the reference returns).
 """
 
 from __future__ import annotations
@@ -83,3 +84,18 @@ def make_sparse_classification(
         labels=torch.from_numpy(np.asarray(labels, dtype=np.float32)),
         dim=dim,
     )
+
+
+def make_dense_classification(
+    *, dim: int, num_instances: int, seed: int = 0, label_noise: float = 0.0
+) -> tuple[np.ndarray, np.ndarray]:
+    """Small dense problem (tests): returns (D [d x N], y [N])."""
+    rng = np.random.default_rng(seed)
+    D = rng.normal(0.0, 1.0, size=(dim, num_instances)).astype(np.float32)
+    D /= np.maximum(np.linalg.norm(D, axis=0, keepdims=True), 1e-8)
+    teacher = rng.normal(0.0, 1.0, size=dim).astype(np.float32)
+    y = np.sign(teacher @ D)
+    flip = rng.random(num_instances) < label_noise
+    y = np.where(flip, -y, y).astype(np.float32)
+    y = np.where(y == 0, 1.0, y)
+    return D, y

@@ -21,6 +21,8 @@ import subprocess
 import tempfile
 import threading
 
+import torch
+
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -52,7 +54,15 @@ _SIGNATURES = (
         _I,
         (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _P),
     ),
+    # The dense-layout step; the int before the stream of fd_matvec and
+    # logistic_grad is the FLOAT_CODES code of the inputs' dtype.
+    ("repro_fd_matvec", _I, (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
+    ("repro_logistic_grad", _I, (_P, _P, _P, _P, _I, _I, _P)),
+    ("repro_svrg_update", _I, (_P, _P, _P, _P, _I, _F, _F, _P)),
+    ("repro_fused_update", _I, (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P)),
 )
+# The input dtypes of the kernels templated on them, as the C code numbers them.
+FLOAT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -159,6 +169,13 @@ def require_tensor(kernel: str, name: str, t, dtype, device, shape: tuple) -> No
         raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{kernel}: {name} must be contiguous")
+
+
+def float_code(kernel: str, name: str, t) -> int:
+    """The C code of ``t``'s dtype; raise unless float32 or bfloat16."""
+    if t.dtype not in FLOAT_CODES:
+        raise TypeError(f"{kernel}: {name} must be float32 or bfloat16, got {t.dtype}")
+    return FLOAT_CODES[t.dtype]
 
 
 def check(rc: int, kernel: str) -> None:

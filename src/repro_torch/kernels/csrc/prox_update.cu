@@ -17,8 +17,9 @@
 // inner step's shapes that is well under a microsecond of HBM time, so in
 // practice the two launches' latency bounds it.
 //
-// Design: two launches on the caller's stream, no scratch vector.
-//   1. prox_dense_kernel — one thread per feature computes the update with
+// Design: two launches on the caller's stream, no scratch vector
+// (launch_dense_then_touched of touched.cuh).
+//   1. the dense pass — one thread per feature computes the update with
 //      g = 0.0 (every feature's value when no sampled row touches it).
 //   2. the touched pass of touched.cuh — one block, ids and contributions
 //      staged in shared memory; for each id's first occurrence in the
@@ -43,33 +44,12 @@
 
 #include "touched.cuh"
 
-namespace {
-
-constexpr int kDenseThreads = 256;
-
-__global__ void __launch_bounds__(kDenseThreads)
-prox_dense_kernel(const float* __restrict__ w, const float* __restrict__ z,
-                  float* __restrict__ out, int d, float eta, float lam,
-                  float lam1, float lam2) {
-  const int j = blockIdx.x * kDenseThreads + threadIdx.x;
-  if (j < d) out[j] = prox_step(w[j], 0.0f, z[j], eta, lam, lam1, lam2);
-}
-
-}  // namespace
-
 extern "C" int repro_prox_update(const float* w, const int* idx,
                                  const float* val, const float* coef,
                                  const float* z, float* out, int d, int u,
                                  int nnz, float eta, float lam, float lam1,
                                  float lam2, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d > 0) {
-    prox_dense_kernel<<<(d + kDenseThreads - 1) / kDenseThreads,
-                        kDenseThreads, 0, s>>>(w, z, out, d, eta, lam, lam1,
-                                               lam2);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return launch_touched(idx, val, coef, u, nnz,
-                        ProxUpdate{w, z, out, eta, lam, lam1, lam2}, s);
+  return launch_dense_then_touched(
+      idx, val, coef, d, u, nnz, ProxUpdate{w, z, out, eta, lam, lam1, lam2},
+      static_cast<cudaStream_t>(stream));
 }

@@ -10,13 +10,16 @@
 //   launch_touched  — one block over the u * nnz_l flattened entries: for
 //                     each first occurrence of an id, the owning warp sums
 //                     that id's contributions in flat order and its lane 0
-//                     calls update(j, g).
+//                     calls update(j, g);
+//   launch_dense_then_touched — the dense step of a whole block: update(j,
+//                     0.0) at every feature (one thread each), then the
+//                     touched pass rewrites the sampled rows' features.
 //
 // Adding each feature's contributions in flat order from 0.0 is the
 // order of the reference's jnp.zeros(d).at[idx.ravel()].add(contrib), and
 // one owner per id means no float atomics: the result is deterministic,
 // and an update may read and write w[j] in place.  Used by prox_update.cu
-// (the touched pass of the dense step) and lazy_update.cu (the lazy touch
+// and fused_update.cu (the dense step) and lazy_update.cu (the lazy touch
 // and probabilistic updates, and the catch-up's ownership test).
 //
 // Everything here sits in an anonymous namespace: each translation unit
@@ -130,6 +133,32 @@ int launch_touched(const int* idx, const float* val, const float* coef,
         idx, val, coef, entries, nnz, update);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// One thread per feature: update(j, 0.0f), the step of every feature that
+// no sampled row touches.
+template <class Update>
+__global__ void __launch_bounds__(kTouchedThreads)
+dense_kernel(int d, Update update) {
+  const int j = blockIdx.x * kTouchedThreads + threadIdx.x;
+  if (j < d) update(j, 0.0f);
+}
+
+// The dense step on stream s: two launches, the dense pass and then the
+// touched pass, which overwrites the touched features.  update's output
+// must not alias w: the dense pass writes every out[j] before the touched
+// pass reads w[j].  Returns cudaGetLastError().
+template <class Update>
+int launch_dense_then_touched(const int* idx, const float* val,
+                              const float* coef, int d, int u, int nnz,
+                              Update update, cudaStream_t s) {
+  if (d > 0) {
+    dense_kernel<Update><<<(d + kTouchedThreads - 1) / kTouchedThreads,
+                           kTouchedThreads, 0, s>>>(d, update);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return launch_touched(idx, val, coef, u, nnz, update, s);
 }
 
 // update(j, g) of the dense prox step: out[j] = prox_step(w[j], g, z[j]).

@@ -1,11 +1,12 @@
 """Public wrappers around the kernels, dispatching on the tensors' device.
 
-Port of ``repro.kernels.ops`` for the kernels of the FD-SVRG main path
-and its lazy inner steps.  On a CUDA tensor each wrapper launches its
-hand-written kernel (or raises); on a CPU tensor it takes the kernel's
-plain PyTorch version.  There is no fallback from one to the other.  The
-reference's TPU-only keywords (``block_rows``, ``interpret``) have no
-counterpart here.
+Port of ``repro.kernels.ops`` for the kernels of the FD-SVRG main path,
+its lazy inner steps and the dense-layout step.  On a CUDA tensor each
+wrapper launches its hand-written kernel (or raises); on a CPU tensor it
+takes the kernel's plain PyTorch version.  There is no fallback from one
+to the other.  The reference's TPU-only keywords (``block_rows``,
+``block_k``, ``block_n``, ``block``, ``interpret``) have no counterpart
+here.
 """
 
 from __future__ import annotations
@@ -13,9 +14,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.kernels import fd_matvec as _matvec
+from repro_torch.kernels import fused_update as _fused
 from repro_torch.kernels import lazy_update as _lazy
+from repro_torch.kernels import logistic_grad as _logistic
 from repro_torch.kernels import prox_update as _prox
 from repro_torch.kernels import sparse_margin as _margin
+from repro_torch.kernels import svrg_update as _svrg
 from repro_torch.kernels.lazy_update import step_corrections
 
 
@@ -37,6 +42,24 @@ def sparse_margins(
     if _route(w_block, "sparse_margin"):
         return _margin.sparse_margin(indices, values, w_block)
     return _margin.sparse_margin_plain(indices, values, w_block)
+
+
+def fused_block_update(
+    w_block: torch.Tensor,  # float32[d_block]
+    indices: torch.Tensor,  # int32[u, nnz_l], block-LOCAL ids
+    values: torch.Tensor,  # float32[u, nnz_l]
+    coef: torch.Tensor,  # float32[u]
+    z_block: torch.Tensor,  # float32[d_block]
+    eta: float,  # host scalar (eta * option mask), rounded to float32 here
+    *,
+    lam: float,
+) -> torch.Tensor:  # float32[d_block]
+    """w - eta * (scatter(coef * x) + z + lam * w) on one block (L2
+    family; lam = 0 covers the unregularized path)."""
+    eta = float(np.float32(eta))
+    if _route(w_block, "fused_update"):
+        return _fused.fused_update(w_block, indices, values, coef, z_block, eta, lam)
+    return _fused.fused_update_plain(w_block, indices, values, coef, z_block, eta, lam)
 
 
 def fused_block_prox_update(
@@ -172,30 +195,80 @@ def lazy_block_proba_update(
     )
 
 
+# The dense-layout step: margins of a dense [d, N] block, the fused
+# logistic loss and derivative, and the dense L2 update.  ``eta`` and
+# ``lam`` are host floats, so no call waits on the card.
+
+
+def margins_dense(
+    w: torch.Tensor,  # float32 or bfloat16 [d]
+    data: torch.Tensor,  # same dtype [d, N], contiguous (D[:, i:i+1].contiguous())
+) -> torch.Tensor:  # float32 [N]
+    """S = wᵀD, the full-gradient-phase margins for one feature block."""
+    if _route(w, "fd_matvec"):
+        return _matvec.fd_matvec(w, data)
+    return _matvec.fd_matvec_plain(w, data)
+
+
+def loss_and_grad(
+    s: torch.Tensor,  # float32 or bfloat16 [N]
+    y: torch.Tensor,  # same dtype [N]
+) -> tuple[torch.Tensor, torch.Tensor]:  # float32 [N] loss, dloss
+    """Fused logistic loss values + margin derivatives."""
+    if _route(s, "logistic_grad"):
+        return _logistic.logistic_grad(s, y)
+    return _logistic.logistic_grad_plain(s, y)
+
+
+def svrg_dense_update(
+    w: torch.Tensor,  # float32[d]
+    g_sparse: torch.Tensor,  # float32[d]
+    z: torch.Tensor,  # float32[d]
+    *,
+    eta: float,
+    lam: float,
+) -> torch.Tensor:  # float32[d]
+    """Fused w' = (1-eta*lam) w - eta (g_sparse + z)   (L2 path)."""
+    if _route(w, "svrg_update"):
+        return _svrg.svrg_update(w, g_sparse, z, eta, lam)
+    return _svrg.svrg_update_plain(w, g_sparse, z, eta, lam)
+
+
+_COUNTED = (_margin, _prox, _fused, _matvec, _logistic, _svrg)
+
+
 def launch_counts() -> dict[str, int]:
     """Launches of each kernel since the last :func:`reset_launch_counts`."""
     return {
         "sparse_margin": _margin.launches,
         "prox_update": _prox.launches,
         **_lazy.launches,
+        "fused_update": _fused.launches,
+        "fd_matvec": _matvec.launches,
+        "logistic_grad": _logistic.launches,
+        "svrg_update": _svrg.launches,
     }
 
 
 def reset_launch_counts() -> None:
-    _margin.launches = 0
-    _prox.launches = 0
+    for mod in _COUNTED:
+        mod.launches = 0
     for name in _lazy.launches:
         _lazy.launches[name] = 0
 
 
 __all__ = [
     "fused_block_prox_update",
+    "fused_block_update",
     "launch_counts",
     "lazy_block_catchup",
     "lazy_block_flush",
     "lazy_block_proba_update",
     "lazy_block_touch_update",
+    "loss_and_grad",
+    "margins_dense",
     "reset_launch_counts",
     "sparse_margins",
     "step_corrections",
+    "svrg_dense_update",
 ]
