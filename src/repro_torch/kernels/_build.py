@@ -30,7 +30,7 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 # (name, restype, argtypes) of every C entry point; pointers and the
 # stream are c_void_p so ctypes never truncates them to 32 bits.
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = (
     ("repro_sparse_margin", _I, (_P, _P, _P, _P, _I, _I, _P)),
     (
@@ -60,6 +60,14 @@ _SIGNATURES = (
     ("repro_logistic_grad", _I, (_P, _P, _P, _P, _I, _I, _P)),
     ("repro_svrg_update", _I, (_P, _P, _P, _P, _I, _F, _F, _P)),
     ("repro_fused_update", _I, (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P)),
+    # Decode attention: q, k, v, the three split partials, out; B, Hkv,
+    # G, Dh; the k/v batch stride (64-bit); length, rows per split,
+    # splits; scale; the FLOAT_CODES code; the stream.
+    (
+        "repro_flash_decode",
+        _I,
+        (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _I, _F, _I, _P),
+    ),
 )
 # The input dtypes of the kernels templated on them, as the C code numbers them.
 FLOAT_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -1,12 +1,12 @@
 """Public wrappers around the kernels, dispatching on the tensors' device.
 
 Port of ``repro.kernels.ops`` for the kernels of the FD-SVRG main path,
-its lazy inner steps and the dense-layout step.  On a CUDA tensor each
-wrapper launches its hand-written kernel (or raises); on a CPU tensor it
-takes the kernel's plain PyTorch version.  There is no fallback from one
-to the other.  The reference's TPU-only keywords (``block_rows``,
-``block_k``, ``block_n``, ``block``, ``interpret``) have no counterpart
-here.
+its lazy inner steps, the dense-layout step and LM decode attention.  On
+a CUDA tensor each wrapper launches its hand-written kernel (or raises);
+on a CPU tensor it takes the kernel's plain PyTorch version.  There is
+no fallback from one to the other.  The reference's TPU-only keywords
+(``block_rows``, ``block_k``, ``block_n``, ``block``, ``block_s``,
+``interpret``) have no counterpart here.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import fd_matvec as _matvec
+from repro_torch.kernels import flash_decode as _decode
 from repro_torch.kernels import fused_update as _fused
 from repro_torch.kernels import lazy_update as _lazy
 from repro_torch.kernels import logistic_grad as _logistic
@@ -234,7 +235,46 @@ def svrg_dense_update(
     return _svrg.svrg_update_plain(w, g_sparse, z, eta, lam)
 
 
-_COUNTED = (_margin, _prox, _fused, _matvec, _logistic, _svrg)
+def decode_attention(
+    q: torch.Tensor,  # [H, Dh] one token's query heads
+    k: torch.Tensor,  # [S, Hkv, Dh] cache
+    v: torch.Tensor,  # [S, Hkv, Dh]
+    *,
+    length: int,  # valid cache prefix
+    scale: float | None = None,
+) -> torch.Tensor:  # float32 [H, Dh]
+    """Flash-decoding over the KV cache (one token, GQA): the batched
+    form with B = 1."""
+    h, dh = q.shape
+    s, hkv, _ = k.shape
+    if h % hkv:
+        raise ValueError(f"decode_attention: {h} heads over {hkv} KV heads")
+    qg = q.reshape(1, hkv, h // hkv, dh)
+    out = decode_attention_batched(qg, k[None], v[None], length=length, scale=scale)
+    return out.reshape(h, dh)
+
+
+def decode_attention_batched(
+    q: torch.Tensor,  # [B, Hkv, G, Dh], head h = j * G + g
+    k: torch.Tensor,  # [B, S, Hkv, Dh]
+    v: torch.Tensor,  # [B, S, Hkv, Dh]
+    *,
+    length: int,  # valid prefix, the same for the whole batch
+    scale: float | None = None,
+) -> torch.Tensor:  # float32 [B, Hkv, G, Dh]
+    """One decode step's attention for a batch of requests at one layer:
+    the kernel (one counted launch) on the card, its plain version on the
+    CPU.  ``length`` is a host int in ``[1, S]``."""
+    length = int(length)
+    if not 1 <= length <= k.shape[1]:
+        raise ValueError(f"decode_attention: length {length} outside [1, {k.shape[1]}]")
+    scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
+    if _route(q, "flash_decode"):
+        return _decode.flash_decode(q.contiguous(), k, v, length, scale)
+    return _decode.flash_decode_plain(q, k, v, length, scale)
+
+
+_COUNTED = (_margin, _prox, _fused, _matvec, _logistic, _svrg, _decode)
 
 
 def launch_counts() -> dict[str, int]:
@@ -247,6 +287,7 @@ def launch_counts() -> dict[str, int]:
         "fd_matvec": _matvec.launches,
         "logistic_grad": _logistic.launches,
         "svrg_update": _svrg.launches,
+        "flash_decode": _decode.launches,
     }
 
 
@@ -258,6 +299,8 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
+    "decode_attention",
+    "decode_attention_batched",
     "fused_block_prox_update",
     "fused_block_update",
     "launch_counts",

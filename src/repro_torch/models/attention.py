@@ -1,0 +1,244 @@
+"""GQA attention: chunked online-softmax train/prefill path + cached decode.
+
+Port of ``repro.models.attention``.  Two cache layouts, as in the
+reference: train/prefill lays q out ``[B, H, S, Dh]`` and streams keys and
+values through a loop over key chunks with an online-softmax accumulator,
+so the ``[S, S]`` score matrix never materialises; decode keeps the cache
+``[B, S, Hkv, Dh]`` and attends one new token to its valid prefix.
+
+The decode core goes through :func:`repro_torch.kernels.ops.decode_attention_batched`
+(``use_kernels=True``, the default): the ``flash_decode`` kernel on the
+card, its plain version on the CPU.  ``use_kernels=False`` takes the
+plain version on any device.  The kernel takes neither the attention
+logit softcap nor the sliding window (gemma2's layers): on the card
+those raise ``NotImplementedError`` with ``use_kernels=True``; the plain
+path keeps both.  :func:`attention_decode` writes the new token's k and v
+into the cache IN PLACE and returns the same dict (the reference returns
+a new cache).
+
+Supports: GQA/MQA, RoPE, qk-norm (qwen3), sliding window and attention
+logit softcap (plain paths).  The causal block-skipping lever
+(``q_chunk``, the reference's ``_attention_blockwise``) is not ported
+yet (ROADMAP queue 1 item 11) and raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.kernels import flash_decode as flash_decode_lib
+from repro_torch.kernels import ops
+from repro_torch.models.layers import apply_rope, init_rms_scale, normal, rms_norm, softcap
+
+_MASK_VALUE = -1e30
+# The train path processes queries in blocks whose float32 scores for one
+# key chunk stay under this many bytes: each query row's arithmetic is
+# unchanged, and a 32,768-token prefill at 40 heads fits beside a
+# 14B-parameter model on one card.
+SCORE_BLOCK_BYTES = 1 << 30
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnConfig:
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    rope_theta: float = 10000.0
+    qk_norm: bool = False
+    window: int | None = None  # sliding window (None = global)
+    attn_softcap: float | None = None
+    norm_eps: float = 1e-6
+    kv_chunk: int = 1024
+    q_chunk: int | None = None  # the reference's block-skipping lever (not ported)
+
+    @property
+    def group(self) -> int:
+        return self.num_heads // self.num_kv_heads
+
+
+def init_attention(gen: torch.Generator, d_model: int, cfg: AttnConfig, dtype) -> dict:
+    s_in = d_model ** -0.5
+    s_out = (cfg.num_heads * cfg.head_dim) ** -0.5
+    params = {
+        "wq": normal(gen, (d_model, cfg.num_heads, cfg.head_dim), s_in, dtype),
+        "wk": normal(gen, (d_model, cfg.num_kv_heads, cfg.head_dim), s_in, dtype),
+        "wv": normal(gen, (d_model, cfg.num_kv_heads, cfg.head_dim), s_in, dtype),
+        "wo": normal(gen, (cfg.num_heads, cfg.head_dim, d_model), s_out, dtype),
+    }
+    if cfg.qk_norm:
+        params["q_norm"] = init_rms_scale(cfg.head_dim, gen.device)
+        params["k_norm"] = init_rms_scale(cfg.head_dim, gen.device)
+    return params
+
+
+def _project_qkv(params, x, positions, cfg: AttnConfig, ctx):
+    """x: [B, S, D] -> q [B, H, S, Dh], k/v [B, S, Hkv, Dh] (rope applied;
+    qk-norm per head before RoPE)."""
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, params["k_norm"], cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    q = ctx.constrain(q.transpose(1, 2), "batch", "heads", None, None)  # [B, H, S, Dh]
+    k = ctx.constrain(k, "batch", None, "kv_heads", None)
+    v = ctx.constrain(v, "batch", None, "kv_heads", None)
+    return q, k, v
+
+
+def _q_block(b: int, h: int, s: int, kv_chunk: int) -> int:
+    """Query rows per block: the float32 scores [B, H, rows, kv_chunk]
+    stay under SCORE_BLOCK_BYTES."""
+    return max(1, min(s, SCORE_BLOCK_BYTES // (4 * b * h * kv_chunk)))
+
+
+def attention_train(
+    params: dict,
+    x: torch.Tensor,  # [B, S, D]
+    positions: torch.Tensor,  # [B, S]
+    cfg: AttnConfig,
+    ctx,
+    *,
+    kv_chunk: int | None = None,
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """Causal (optionally windowed) attention; returns output and (k, v)
+    in cache layout so prefill shares this path."""
+    b, s, d = x.shape
+    h, dh = cfg.num_heads, cfg.head_dim
+    scale = dh ** -0.5
+    kv_chunk = cfg.kv_chunk if kv_chunk is None else kv_chunk
+    q, k, v = _project_qkv(params, x, positions, cfg, ctx)
+
+    if cfg.q_chunk is not None and s > cfg.q_chunk:
+        raise NotImplementedError(
+            "attention_train: the q_chunk block-skipping path (_attention_blockwise) "
+            "is not ported yet (ROADMAP queue 1 item 11)"
+        )
+
+    kv_chunk = min(kv_chunk, s)
+    assert s % kv_chunk == 0, f"seq {s} % kv_chunk {kv_chunk} != 0"
+    n_chunks = s // kv_chunk
+    qf = q.float()
+    # Key chunks in the order of the reference's scan; each expanded to
+    # full heads (head h uses KV head h // group).
+    chunks = []
+    for c in range(n_chunks):
+        sl = slice(c * kv_chunk, (c + 1) * kv_chunk)
+        k_r = torch.repeat_interleave(k[:, sl], cfg.group, dim=2).float()  # [B, kc, H, Dh]
+        v_r = torch.repeat_interleave(v[:, sl], cfg.group, dim=2).float()
+        chunks.append((k_r, v_r, positions[:, sl]))
+
+    out = torch.empty((b, h, s, dh), dtype=torch.float32, device=x.device)
+    rows = _q_block(b, h, s, kv_chunk)
+    for q0 in range(0, s, rows):
+        qs = slice(q0, min(s, q0 + rows))
+        q_blk = qf[:, :, qs]  # [B, H, r, Dh]
+        qpos = positions[:, qs]
+        r = q_blk.shape[2]
+        acc = torch.zeros((b, h, r, dh), dtype=torch.float32, device=x.device)
+        m = torch.full((b, h, r, 1), _MASK_VALUE, dtype=torch.float32, device=x.device)
+        l = torch.zeros((b, h, r, 1), dtype=torch.float32, device=x.device)
+        for k_r, v_r, kp in chunks:
+            scores = torch.einsum("bhsd,bchd->bhsc", q_blk, k_r) * scale
+            scores = softcap(scores, cfg.attn_softcap)
+            causal = kp[:, None, None, :] <= qpos[:, None, :, None]
+            if cfg.window is not None:
+                causal &= (qpos[:, None, :, None] - kp[:, None, None, :]) < cfg.window
+            scores = ctx.constrain(
+                scores.masked_fill_(~causal, _MASK_VALUE), "batch", "heads", None, None
+            )
+            m_new = torch.maximum(m, scores.amax(dim=-1, keepdim=True))
+            alpha = torch.exp(m - m_new)
+            p = scores.sub_(m_new).exp_()  # exp(scores - m_new), in place
+            l = l * alpha + p.sum(dim=-1, keepdim=True)
+            acc = acc * alpha + torch.einsum("bhsc,bchd->bhsd", p, v_r)
+            m = m_new
+            del scores, p
+        out[:, :, qs] = acc / torch.clamp_min(l, 1e-30)
+    return y_project(params, out, ctx, x.dtype), (k, v)
+
+
+def y_project(params, out_f32, ctx, dtype):
+    y = torch.einsum("bhsd,hdo->bso", out_f32.to(dtype), params["wo"])
+    return ctx.constrain(y, "batch", "seq", "embed")
+
+
+def init_kv_cache(
+    batch: int, max_len: int, cfg: AttnConfig, dtype, ctx, device: torch.device | str = "cpu"
+) -> dict:
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    k = torch.zeros(shape, dtype=dtype, device=device)
+    v = torch.zeros(shape, dtype=dtype, device=device)
+    return {
+        "k": ctx.constrain(k, "batch", "seq_kv", None, None),
+        "v": ctx.constrain(v, "batch", "seq_kv", None, None),
+    }
+
+
+def attention_decode(
+    params: dict,
+    x: torch.Tensor,  # [B, 1, D] current token's activations
+    cache: dict,  # {"k": [B, S, Hkv, Dh], "v": ...}, written in place at pos
+    pos: int,  # current position (same for the whole batch), a host int
+    cfg: AttnConfig,
+    ctx,
+    *,
+    use_kernels: bool = True,
+) -> tuple[torch.Tensor, dict]:
+    b, one, d = x.shape
+    hkv, dh, g = cfg.num_kv_heads, cfg.head_dim, cfg.group
+    scale = dh ** -0.5
+    pos = int(pos)
+    positions = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
+
+    q, k_new, v_new = _project_qkv(params, x, positions, cfg, ctx)
+    # q: [B, H, 1, Dh] -> grouped [B, Hkv, G, Dh]
+    qg = q[:, :, 0, :].reshape(b, hkv, g, dh)
+
+    k, v = cache["k"], cache["v"]
+    k[:, pos : pos + 1] = k_new
+    v[:, pos : pos + 1] = v_new
+
+    plain_only = cfg.attn_softcap is not None or cfg.window is not None
+    if use_kernels and not plain_only:
+        out = ops.decode_attention_batched(qg, k, v, length=pos + 1, scale=scale)
+    elif use_kernels and x.is_cuda:
+        raise NotImplementedError(
+            "attention_decode: the flash_decode kernel takes no attention softcap or "
+            "sliding window (gemma2's layers; ROADMAP queue 1 item 11); pass "
+            "use_kernels=False for the plain path"
+        )
+    else:
+        out = flash_decode_lib.flash_decode_plain(
+            qg, k, v, pos + 1, scale, softcap=cfg.attn_softcap, window=cfg.window
+        )
+    out = out.reshape(b, 1, cfg.num_heads, dh).transpose(1, 2)  # [B, H, 1, Dh]
+    y = torch.einsum("bhsd,hdo->bso", out.to(x.dtype), params["wo"])
+    y = ctx.constrain(y, "batch", None, "embed")
+    return y, cache
+
+
+def attention_ref(
+    params: dict,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    cfg: AttnConfig,
+    ctx,
+) -> torch.Tensor:
+    """Materialized-logits oracle (small shapes / tests only)."""
+    q, k, v = _project_qkv(params, x, positions, cfg, ctx)
+    k_r = torch.repeat_interleave(k, cfg.group, dim=2)  # [B, S, H, Dh]
+    v_r = torch.repeat_interleave(v, cfg.group, dim=2)
+    scores = torch.einsum("bhsd,bthd->bhst", q.float(), k_r.float()) * (cfg.head_dim ** -0.5)
+    scores = softcap(scores, cfg.attn_softcap)
+    causal = positions[:, None, None, :] <= positions[:, None, :, None]
+    if cfg.window is not None:
+        causal &= (positions[:, None, :, None] - positions[:, None, None, :]) < cfg.window
+    scores = torch.where(causal, scores, _MASK_VALUE)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhst,bthd->bhsd", p, v_r.float()).to(x.dtype)
+    return torch.einsum("bhsd,hdo->bso", out, params["wo"])

@@ -27,6 +27,7 @@ from repro.kernels import ops as r_ops
 
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import fd_matvec as matvec_mod
+from repro_torch.kernels import flash_decode as decode_mod
 from repro_torch.kernels import fused_update as fused_mod
 from repro_torch.kernels import lazy_update as lazy_mod
 from repro_torch.kernels import logistic_grad as logistic_mod
@@ -213,30 +214,33 @@ def test_launch_counters_reset():
         lazy_mod.launches[name] = k + 1
     fused_mod.launches, matvec_mod.launches = 8, 9
     logistic_mod.launches, svrg_mod.launches = 10, 11
+    decode_mod.launches = 12
     assert ops.launch_counts() == {
         "sparse_margin": 5, "prox_update": 7, "lazy_catchup": 1,
         "lazy_touch_update": 2, "lazy_flush": 3, "lazy_proba_update": 4,
         "fused_update": 8, "fd_matvec": 9, "logistic_grad": 10, "svrg_update": 11,
+        "flash_decode": 12,
     }
     ops.reset_launch_counts()
     assert ops.launch_counts() == {
         "sparse_margin": 0, "prox_update": 0, "lazy_catchup": 0,
         "lazy_touch_update": 0, "lazy_flush": 0, "lazy_proba_update": 0,
         "fused_update": 0, "fd_matvec": 0, "logistic_grad": 0, "svrg_update": 0,
+        "flash_decode": 0,
     }
 
 
 def test_kernel_sources_declare_their_c_entry_points_and_origin():
     names = [s.name for s in _build.sources()]
-    assert names == ["fd_matvec.cu", "fused_update.cu", "lazy_update.cu", "logistic_grad.cu",
-                     "prox_update.cu", "sparse_margin.cu", "svrg_update.cu"]
+    assert names == ["fd_matvec.cu", "flash_decode.cu", "fused_update.cu", "lazy_update.cu",
+                     "logistic_grad.cu", "prox_update.cu", "sparse_margin.cu", "svrg_update.cu"]
     assert [h.name for h in _build.headers()] == ["touched.cuh"]
     text = {s.name: s.read_text() for s in _build.sources() + _build.headers()}
     entries = [e for e, _, _ in _build._SIGNATURES]
     assert entries == ["repro_sparse_margin", "repro_prox_update", "repro_lazy_catchup",
                        "repro_lazy_touch_update", "repro_lazy_flush",
                        "repro_lazy_proba_update", "repro_fd_matvec", "repro_logistic_grad",
-                       "repro_svrg_update", "repro_fused_update"]
+                       "repro_svrg_update", "repro_fused_update", "repro_flash_decode"]
     for entry, _, argtypes in _build._SIGNATURES:
         src = next(t for t in text.values() if f'extern "C" int {entry}(' in t)
         params = re.search(rf"{entry}\((.*?)\)\s*{{", src, re.S).group(1)
@@ -246,7 +250,7 @@ def test_kernel_sources_declare_their_c_entry_points_and_origin():
     for line in (":125", ":177", ":224", ":266"):
         assert f"lazy_update.py{line}" in text["lazy_update.cu"]
     for name, line in (("fused_update", 73), ("fd_matvec", 61), ("logistic_grad", 46),
-                       ("svrg_update", 49)):
+                       ("svrg_update", 49), ("flash_decode", 97)):
         assert f"repro/kernels/{name}.py" in text[f"{name}.cu"]
         assert f"the pallas_call at :{line}" in text[f"{name}.cu"]
     # The touched pass lives once, in the header the three kernels include.
@@ -281,8 +285,8 @@ def test_source_hash_covers_the_headers(monkeypatch, tmp_path):
     assert _build.source_hash() != h
     # The header is hashed but never compiled on its own.
     assert [p.name for p in _build.sources()] == \
-        ["fd_matvec.cu", "fused_update.cu", "lazy_update.cu", "logistic_grad.cu",
-         "prox_update.cu", "sparse_margin.cu", "svrg_update.cu"]
+        ["fd_matvec.cu", "flash_decode.cu", "fused_update.cu", "lazy_update.cu",
+         "logistic_grad.cu", "prox_update.cu", "sparse_margin.cu", "svrg_update.cu"]
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
