@@ -7,21 +7,25 @@ Run from the root of a checkout, on a machine with a CUDA card:
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds each kernel against its plain PyTorch version at the shapes of the
-FD-SVRG main path (full-width news20, q = 8), drives that main path
-through ``run_fdsvrg(use_kernels=True)`` with exact meter and
-launch-count checks, compares a short run with the plain path, runs the
-serial path, and scores the trained ``w`` through the margin kernel.
+FD-SVRG main path (full-width news20, q = 8; the snapshot scatter bit for
+bit against the CPU's ``index_add_`` in all 8 blocks), drives that main
+path through ``run_fdsvrg(use_kernels=True)`` with exact meter and
+launch-count checks, holds two short kernel-path runs bitwise equal and
+one against the plain path, runs the serial path, and scores the trained
+``w`` through the margin kernel.
 Then the lazy paths: ``run_fdsvrg(lazy_updates="exact")`` and
 ``"proba"`` and ``run_serial_svrg(lazy_updates="exact")`` with exact
-meter and launch counts, one exact-lazy epoch held bitwise against the
-dense epoch on the kernel path, and a profile of the lazy epoch.
+meter and launch counts, the exact-lazy run held bitwise against the
+dense main path, one exact-lazy epoch held bitwise against the dense
+epoch on the kernel path, and a profile of the lazy epoch.
 Then the dense-layout step: block 0 densified into a [169,399 x 19,954]
 matrix, the composed step of ``tests/test_kernels.py:159`` (margins
 through ``margins_dense``, ``loss_and_grad``, ``svrg_dense_update``) run
 K steps beside its BlockCSR twin (``sparse_margins``, ``loss_and_grad``,
-``fused_block_update``) with exact launch counts, and the four dense-step
-kernels held against their plain versions at full width and at one
-step's shapes.
+``fused_block_update``) with exact launch counts (each step's column read
+in place, then once more with a contiguous copy for the comparison), and
+the four dense-step kernels held against their plain versions at full
+width and at one step's shapes.
 Then LM serving (qwen3-14b at full width, 14.8e9 parameters in bfloat16,
 random weights from seed 0): the ``flash_decode`` kernel held against
 its plain version and timed beside one SDPA call, at qwen3-14b's decode
@@ -31,7 +35,9 @@ shapes (up to 524,288 positions) and the reference test's; then
 (``lm_decode_long``), 16 greedy tokens each, with exact launch counts
 (one ``flash_decode`` per layer and step), a plain twin of the decode
 (``use_kernels=False``, fed the kernel run's tokens) within a stated
-tolerance, and a profile of one long decode step.
+tolerance, and a profile of one long decode step; then the batch-4 run
+again in float32 at 4 layers (``lm_serve_f32``), whose twin separates the
+kernel's error from bfloat16's.
 Each phase prints one JSON line; the last line is the result object
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 without printing it, as does a machine without a CUDA device or a
@@ -54,6 +60,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # float32 outside the tensor cores.  bound_ms is computed against them.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+# Cycles of one dependent float32 add: the snapshot scatter's chain bound.
+FADD_CYCLES = 4
 
 # Main-path run: the fdsvrg-news20 preset at full width, depth cut to a
 # few steps (the paper's M is N = 19,954 inner steps per outer).
@@ -71,10 +79,12 @@ SEED = 0
 
 # Stated tolerances.
 MARGIN_RTOL = 1e-6  # |kernel - plain| <= 1e-6 * sum_k |w[idx] * val| per row
-# Kernel path vs plain path on the card: the two sum margins in different
-# orders and the snapshot's index_add_ adds with atomics, so the two
-# trajectories drift apart by rounding; w is held relative to its scale.
-# Two kernel-path runs differ only through that snapshot scatter.
+# Kernel path vs plain path on the card: the margin kernel sums in another
+# order than the plain gather-sum, and the plain path's index_add_ adds
+# repeated ids with atomics in an order that changes from run to run, so
+# the two trajectories drift apart by rounding; w is held relative to its
+# scale.  Two kernel-path runs, and the exact-lazy run against the dense
+# one, are held bitwise: every kernel on that path sums in a fixed order.
 RUN_RTOL, RUN_W_RTOL = 1e-5, 1e-3
 # Lazy kernels vs plain: catch-up and flush replay k steps per feature,
 # |kernel - plain| <= 1e-6 * (k + 1) * (|w| + |plain| + eta * |z|); touch
@@ -134,9 +144,9 @@ def require(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
-def card_line() -> str:
+def card_line(query: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     return out.splitlines()[0]
@@ -172,12 +182,14 @@ def device_kernels(torch, prof) -> tuple[dict[str, float], dict[str, int]]:
     return us, calls
 
 
-def device_ms(torch, fn, iters: int, before=None) -> float:
+def device_ms(torch, fn, iters: int, before=None, kernels_seen=None) -> float:
     """Mean device time per call: the kernels ``fn`` launches, summed from
     a torch.profiler (CUPTI) trace after warm-up.  ``before`` runs before
     each call and is not counted (it may only copy memory): a copy that
     overwrites the 50 MB L2 makes the cache cold, as the snapshot finds
-    it; a copy of saved state restores what an in-place kernel wrote."""
+    it; a copy of saved state restores what an in-place kernel wrote.
+    ``kernels_seen``, a list, gets the kernel records the trace holds per
+    call: below the launches per call when records were lost."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -189,9 +201,14 @@ def device_ms(torch, fn, iters: int, before=None) -> float:
                 before()
             fn()
         torch.cuda.synchronize()
-    total = sum(device_kernels(torch, prof)[0].values())
-    require(total > 0.0, "the profiler recorded no device time")
-    return total / iters / 1e3
+    us, calls = device_kernels(torch, prof)
+    require(sum(us.values()) > 0.0, "the profiler recorded no device time")
+    if kernels_seen is not None:
+        kernels_seen.append(sum(calls.values()) / iters)
+    # The trace can miss a few records (7 of 10 four-millisecond fd_matvec
+    # launches were kept on an H100 80GB HBM3 at 700 W): each kernel name
+    # counts its mean time per record, times its launches per call.
+    return sum(us[k] / calls[k] * max(1, round(calls[k] / iters)) for k in us) / 1e3
 
 
 def first_difference(torch, got, want, w, z) -> dict | None:
@@ -251,6 +268,7 @@ def run() -> dict:
     from repro_torch.core.driver import draw_samples
     from repro_torch.core.fdsvrg import (
         SVRGConfig,
+        _divide,
         _full_grad_blocks,
         _inner_epoch,
         _lazy_inner_epoch,
@@ -259,8 +277,9 @@ def run() -> dict:
     )
     from repro_torch.core.partition import balanced
     from repro_torch.data import datasets
-    from repro_torch.data.block_csr import BlockCSR
+    from repro_torch.data.block_csr import BlockCSR, local_scatter
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import block_scatter as scatter_mod
     from repro_torch.kernels import fd_matvec as matvec_mod
     from repro_torch.kernels import flash_decode as decode_mod
     from repro_torch.kernels import fused_update as fused_mod
@@ -298,7 +317,8 @@ def run() -> dict:
     t0 = time.perf_counter()
     data = datasets.load(cfg_preset.dataset, scaled=False, seed=SEED)
     part8 = balanced(data.dim, Q)
-    bd8 = BlockCSR.from_padded(data, part8).to(dev)
+    bd8_cpu = BlockCSR.from_padded(data, part8)
+    bd8 = bd8_cpu.to(dev)
     bd1 = BlockCSR.from_padded(data, balanced(data.dim, 1)).to(dev)
     torch.cuda.synchronize()
     emit({"phase": "data", "dataset": spec.name, "d": data.dim,
@@ -359,6 +379,64 @@ def run() -> dict:
         emit(row)
         margin_rows[label] = row
 
+    # The snapshot scatter at the main path's first snapshot (w = 0): the
+    # kernel's z, block by block, equals the CPU's flat-order index_add_
+    # (local_scatter) of the same rows and coefficients bit for bit.
+    loss = losses.LOSSES[cfg_preset.loss]
+    ops.reset_launch_counts()
+    z_first, s_first = _full_grad_blocks(bd8, torch.zeros(data.dim, device=dev), loss, True)
+    require(ops.launch_counts()["block_scatter"] == Q, "the snapshot launched no block_scatter")
+    coeffs_first = _divide(loss.dvalue(s_first, bd8.labels), n)
+    coeffs_cpu = coeffs_first.cpu()
+    sm_clock_hz = float(card_line("clocks.max.sm").split()[0]) * 1e6
+    scatter_rows = []
+    lo = 0
+    for l in range(Q):
+        d_l = bd8.block_dims[l]
+        idx_l, val_l = bd8.block(l)
+        index = bd8.scatter_index(l)
+        want = local_scatter(bd8_cpu.indices[l], bd8_cpu.values[l], coeffs_cpu, d_l)
+        got = z_first[lo:lo + d_l].cpu()
+        lo += d_l
+        again = scatter_mod.block_scatter(val_l, coeffs_first, index)
+        bitwise = bool(np.array_equal(got.numpy().view(np.int32), want.numpy().view(np.int32)))
+        repeat = bool(torch.equal(again, z_first[lo - d_l:lo]))
+        terms = int(index.perm.numel())
+        chain = int(torch.max(index.starts[1:] - index.starts[:-1]))
+        flat_idx = idx_l.reshape(-1)
+        flat_val = (val_l * coeffs_first[:, None]).reshape(-1)
+        b_ms, b_by = bound_ms(8 * terms + 4 * n + 8 * d_l + 4 * int(index.heavy.numel()),
+                              2.0 * terms)
+        row = {"phase": "kernel_check", "kernel": "block_scatter", "block": l, "d_block": d_l,
+               "nnz_l": int(idx_l.shape[1]), "terms": terms,
+               "heavy_ids": int(index.heavy.numel()), "longest_chain": chain,
+               "bitwise_vs_cpu_index_add": bitwise, "bitwise_repeat": repeat,
+               "max_abs_err": float(torch.max(torch.abs(got - want))),
+               "tolerance": "bitwise vs the CPU's flat-order index_add_", "l2": "cold",
+               "kernel_ms": device_ms(torch, lambda: scatter_mod.block_scatter(
+                   val_l, coeffs_first, index), 5, flush),
+               "plain_ms": device_ms(torch, lambda: scatter_mod.block_scatter_plain(
+                   idx_l, val_l, coeffs_first, d_l), 5, flush),
+               "library_ms": device_ms(torch, lambda: torch.zeros(d_l, device=dev).index_add_(
+                   0, flat_idx, flat_val), 5, flush),
+               "host_ms": host_ms(torch, lambda: scatter_mod.block_scatter(
+                   val_l, coeffs_first, index), 20),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "chain_bound_ms": chain * FADD_CYCLES / sm_clock_hz * 1e3}
+        emit(row)
+        require(bitwise and repeat, f"block_scatter block {l}: {row}")
+        scatter_rows.append(row)
+    emit({"phase": "scatter_snapshot", "blocks": Q,
+          "kernel_ms": sum(r["kernel_ms"] for r in scatter_rows),
+          "index_add_ms": sum(r["library_ms"] for r in scatter_rows),
+          "plain_ms": sum(r["plain_ms"] for r in scatter_rows),
+          "chain_bound_ms": sum(r["chain_bound_ms"] for r in scatter_rows),
+          "bound_ms": sum(r["bound_ms"] for r in scatter_rows),
+          "sm_clock_max_mhz": sm_clock_hz / 1e6, "fadd_cycles": FADD_CYCLES,
+          "note": "one snapshot = the 8 blocks' launches in turn; the chain bound is each "
+                  "block's longest id run of dependent adds"})
+    del z_first, s_first
+
     prox_rows = {}
     eta = float(np.float32(cfg_preset.eta))
     settings = {
@@ -415,7 +493,6 @@ def run() -> dict:
     # and stamps every sampled row in turn, and its `last` must equal the
     # stamps reckoned from the samples (last[j] = 1 + the last step that
     # touched j).  Then step m = LAZY_CHECK_STEPS with fresh rows.
-    loss = losses.LOSSES[cfg_preset.loss]
     reg = cfg_preset.regularizer()
     u = cfg_preset.batch_size
     z_real = _full_grad_blocks(bd8, torch.zeros(data.dim, device=dev), loss, True)[0][:d0]
@@ -564,7 +641,7 @@ def run() -> dict:
     per_outer = 2 * Q * n + INNER_STEPS * 2 * Q * u
     expected_counts = expected_launches(
         ops, sparse_margin=Q * (OUTERS + 1) + Q * INNER_STEPS * OUTERS,
-        prox_update=Q * INNER_STEPS * OUTERS)
+        block_scatter=Q * (OUTERS + 1), prox_update=Q * INNER_STEPS * OUTERS)
     objs = [h.objective for h in res.history]
     emit({"phase": "main_path", "entry": "run_fdsvrg", "config": cfg_preset.name,
           "d": data.dim, "N": n, "q": Q, "u": u, "eta": cfg.eta, "reg": reg.name,
@@ -607,19 +684,25 @@ def run() -> dict:
           "device_idle_share": 1.0 - busy_s / window_s,
           "top_kernels_us": [[k[:90], v] for k, v in top]})
 
-    # 5. A short run against the plain path on the card.
+    # 5. Two short kernel-path runs, bitwise equal; one against the plain path.
     short = SVRGConfig(eta=cfg_preset.eta, inner_steps=PLAIN_CHECK_STEPS, outer_iters=1,
                        batch_size=u, seed=SEED)
     k_run = run_fdsvrg(None, part8, loss, reg, short, block_data=bd8, use_kernels=True)
+    k_again = run_fdsvrg(None, part8, loss, reg, short, block_data=bd8, use_kernels=True)
+    runs_bitwise = bool(torch.equal(k_run.w, k_again.w)) and \
+        k_run.objectives().tolist() == k_again.objectives().tolist()
     p_run = run_fdsvrg(None, part8, loss, reg, short, block_data=bd8, use_kernels=False)
     ko, po = k_run.objectives(), p_run.objectives()
     w_err = float(torch.max(torch.abs(k_run.w - p_run.w)))
     w_scale = float(torch.max(torch.abs(p_run.w)))
     obj_rel = float(np.max(np.abs(ko - po) / np.abs(po)))
     emit({"phase": "plain_path_check", "inner_steps": PLAIN_CHECK_STEPS, "outers": 1,
+          "kernel_runs_bitwise": runs_bitwise,
           "objective_kernels": ko.tolist(), "objective_plain": po.tolist(),
           "objective_rel_err": obj_rel, "w_max_abs_err": w_err, "w_max_abs": w_scale,
-          "tolerance": f"objective rtol {RUN_RTOL:g}, max|dw| <= {RUN_W_RTOL:g} * max|w|"})
+          "tolerance": f"two kernel runs bitwise; vs plain objective rtol {RUN_RTOL:g}, "
+                       f"max|dw| <= {RUN_W_RTOL:g} * max|w|"})
+    require(runs_bitwise, "two kernel-path runs differ")
     require(obj_rel <= RUN_RTOL and w_err <= RUN_W_RTOL * w_scale,
             f"kernel path vs plain path: objective rel {obj_rel}, w {w_err} of {w_scale}")
 
@@ -630,7 +713,7 @@ def run() -> dict:
     torch.cuda.synchronize()
     ser_counts = ops.launch_counts()
     ser_expected = expected_launches(ops, sparse_margin=2 + PLAIN_CHECK_STEPS,
-                                     prox_update=PLAIN_CHECK_STEPS)
+                                     block_scatter=2, prox_update=PLAIN_CHECK_STEPS)
     emit({"phase": "serial_path", "entry": "run_serial_svrg", "nnz_l": bd1.nnz_budgets[0],
           "inner_steps": PLAIN_CHECK_STEPS, "objectives": ser.objectives().tolist(),
           "launches": ser_counts, "expected_launches": ser_expected,
@@ -654,8 +737,9 @@ def run() -> dict:
 
     # 8. The exact lazy path: run_fdsvrg(lazy_updates="exact") at the main
     # path's configuration.  Laziness changes no communication: the meter
-    # is the dense closed form.  Against the dense main path (same samples)
-    # only the snapshot's index_add_ atomics can differ.
+    # is the dense closed form.  Against the dense main path (same samples,
+    # each exact-lazy epoch bit for bit the dense one, snapshots through the
+    # same kernels) w and the objectives are equal bit for bit.
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     lazy_res = run_fdsvrg(None, part8, loss, reg, cfg, block_data=bd8, lazy_updates="exact")
@@ -664,14 +748,18 @@ def run() -> dict:
     lazy_counts = ops.launch_counts()
     lazy_expected = expected_launches(
         ops, sparse_margin=Q * (OUTERS + 1) + Q * INNER_STEPS * OUTERS,
-        lazy_catchup=Q * INNER_STEPS * OUTERS, lazy_touch_update=Q * INNER_STEPS * OUTERS,
+        block_scatter=Q * (OUTERS + 1), lazy_catchup=Q * INNER_STEPS * OUTERS,
+        lazy_touch_update=Q * INNER_STEPS * OUTERS,
         lazy_flush=Q * OUTERS)
     lazy_objs = [h.objective for h in lazy_res.history]
     lazy_rel = float(np.max(np.abs(np.array(lazy_objs) - np.array(objs)) / np.abs(objs)))
+    lazy_w_bitwise = bool(torch.equal(lazy_res.w, res.w))
     emit({"phase": "lazy_exact_path", "entry": "run_fdsvrg(lazy_updates='exact')",
           "q": Q, "u": u, "eta": cfg.eta, "reg": reg.name, "outers": OUTERS,
           "inner_steps": INNER_STEPS, "objectives": lazy_objs, "objectives_dense": objs,
-          "objective_rel_vs_dense": lazy_rel,
+          "objective_rel_vs_dense": lazy_rel, "bitwise_objectives_vs_dense": lazy_objs == objs,
+          "bitwise_w_vs_dense": lazy_w_bitwise,
+          "w_max_abs_diff_vs_dense": float(torch.max(torch.abs(lazy_res.w - res.w))),
           "comm_scalars": [h.comm_scalars for h in lazy_res.history],
           "expected_scalars_per_outer": per_outer, "launches": lazy_counts,
           "expected_launches": lazy_expected, "wall_s": lazy_wall,
@@ -685,7 +773,8 @@ def run() -> dict:
             and lazy_res.meter.total_scalars == OUTERS * per_outer,
             f"lazy meter {lazy_res.meter.total_scalars} != {OUTERS} * {per_outer}")
     require(lazy_counts == lazy_expected, f"lazy launches {lazy_counts} != {lazy_expected}")
-    require(lazy_rel <= RUN_RTOL, f"lazy vs dense objective rel {lazy_rel}")
+    require(lazy_objs == objs and lazy_w_bitwise,
+            f"lazy vs dense: objective rel {lazy_rel}, w bitwise {lazy_w_bitwise}")
 
     # 9. The gate: one exact-lazy epoch equals the dense epoch bit for bit
     # on the kernel path, from one snapshot (z, s0) fed to both, Option II
@@ -725,7 +814,7 @@ def run() -> dict:
     proba_wall = time.perf_counter() - t0
     proba_counts = ops.launch_counts()
     proba_expected = expected_launches(ops, sparse_margin=Q * 2 + Q * INNER_STEPS,
-                                       lazy_proba_update=Q * INNER_STEPS)
+                                       block_scatter=Q * 2, lazy_proba_update=Q * INNER_STEPS)
     dense_proba_eta = run_fdsvrg(None, part8, loss, reg, proba_cfg, block_data=bd8)
     proba_obj = proba_res.history[0].objective
     emit({"phase": "lazy_proba_path", "entry": "run_fdsvrg(lazy_updates='proba')",
@@ -748,7 +837,7 @@ def run() -> dict:
     torch.cuda.synchronize()
     lser_counts = ops.launch_counts()
     lser_expected = expected_launches(
-        ops, sparse_margin=2 + PLAIN_CHECK_STEPS, lazy_catchup=PLAIN_CHECK_STEPS,
+        ops, sparse_margin=2 + PLAIN_CHECK_STEPS, block_scatter=2, lazy_catchup=PLAIN_CHECK_STEPS,
         lazy_touch_update=PLAIN_CHECK_STEPS, lazy_flush=1)
     lser_rel = float(np.max(np.abs(lser.objectives() - ser.objectives())
                             / np.abs(ser.objectives())))
@@ -824,19 +913,35 @@ def run() -> dict:
     s0_sparse = ops.sparse_margins(idx0, val0, w_blk)
     loss0, dl0 = ops.loss_and_grad(s0, labels)
     z_d = D @ (dl0 / n)  # plain, as the reference computes it outside any kernel
-    w_dense, w_sparse = w_blk, w_blk
-    for i in step_rows:
-        col = D[:, i:i + 1].contiguous()
-        _, dl_i = ops.loss_and_grad(ops.margins_dense(w_dense, col), labels[i:i + 1])
-        g_dense = (dl_i[0] - dl0[i]) * col[:, 0]
-        w_dense = ops.svrg_dense_update(w_dense, g_dense, z_d, eta=eta_d, lam=lam)
-        ri, rv = idx0[i:i + 1], val0[i:i + 1]
-        _, dl_r = ops.loss_and_grad(ops.sparse_margins(ri, rv, w_sparse), labels[i:i + 1])
-        w_sparse = ops.fused_block_update(w_sparse, ri, rv, dl_r - dl0[i:i + 1], z_d, eta_d,
-                                          lam=lam)
+
+    def dense_steps(copy_column: bool):
+        """The K paired steps from w_blk; each step's column of D is read in
+        place (or, for the comparison, copied to a contiguous column first)."""
+        w_d, w_s = w_blk, w_blk
+        for i in step_rows:
+            col = D[:, i:i + 1].contiguous() if copy_column else D[:, i:i + 1]
+            _, dl_i = ops.loss_and_grad(ops.margins_dense(w_d, col), labels[i:i + 1])
+            g_d = (dl_i[0] - dl0[i]) * col[:, 0]
+            w_d = ops.svrg_dense_update(w_d, g_d, z_d, eta=eta_d, lam=lam)
+            ri, rv = idx0[i:i + 1], val0[i:i + 1]
+            _, dl_r = ops.loss_and_grad(ops.sparse_margins(ri, rv, w_s), labels[i:i + 1])
+            w_s = ops.fused_block_update(w_s, ri, rv, dl_r - dl0[i:i + 1], z_d, eta_d, lam=lam)
+        return w_d, w_s
+
+    w_dense, w_sparse = dense_steps(False)
     torch.cuda.synchronize()
     dense_wall = time.perf_counter() - t0
     dense_counts = ops.launch_counts()
+    # Paired steps/s with the column read in place and with its copy, in
+    # turns (copy, in place, in place, copy), after the counted run.
+    step_walls: dict[str, list[float]] = {"in_place": [], "copied": []}
+    for copy_column in (True, False, False, True):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        w_again, _ = dense_steps(copy_column)
+        torch.cuda.synchronize()
+        step_walls["copied" if copy_column else "in_place"].append(time.perf_counter() - t1)
+        require(torch.equal(w_again, w_dense), "dense_step: a repeat of the K steps differs")
     dense_expected = expected_launches(
         ops, fd_matvec=1 + DENSE_STEPS, logistic_grad=1 + 2 * DENSE_STEPS,
         svrg_update=DENSE_STEPS, fused_update=DENSE_STEPS, sparse_margin=1 + DENSE_STEPS)
@@ -862,7 +967,9 @@ def run() -> dict:
           "tolerance": f"margins |d| <= {DENSE_MARGIN_RTOL:g} * sum|w[idx]*val|; loss rtol = "
                        f"atol = {LOSS_RTOL:g}; w |d| <= {DENSE_STEP_W_RTOL:g} * max|w|",
           "launches": dense_counts, "expected_launches": dense_expected,
-          "wall_s": dense_wall, "steps_per_s_both_twins": DENSE_STEPS / dense_wall})
+          "wall_s": dense_wall, "steps_per_s_both_twins": DENSE_STEPS / dense_wall,
+          "steps_per_s_both_twins_in_turns": {
+              k: [DENSE_STEPS / t for t in v] for k, v in step_walls.items()}})
     require(bool(torch.all(torch.isfinite(w_dense))) and w_moved > 0.0,
             "dense_step: w not finite or not moved")
     require(margin_ratio <= 1.0, f"dense_step: snapshot margins {margin_ratio} of tolerance")
@@ -895,6 +1002,16 @@ def run() -> dict:
         got = matvec_mod.fd_matvec(w, data)
         require(torch.equal(got, matvec_mod.fd_matvec(w, data)), f"fd_matvec {shape}: not deterministic")
         rows_d, cols = data.shape
+        # A second clock beside the profiler's: CUDA events around calls back
+        # to back, the kernel and the library call in turns (k, l, l, k), and
+        # the kernel records the profiler keeps per call.
+        turns: dict[str, list[float]] = {"kernel": [], "library": []}
+        for which in ("kernel", "library", "library", "kernel") if library else ("kernel",):
+            fn = (lambda: matvec_mod.fd_matvec(w, data)) if which == "kernel" else \
+                (lambda: torch.mv(data.t(), w))
+            turns[which].append(host_ms(torch, fn, iters))
+        seen: list[float] = []
+        device_ms(torch, lambda: matvec_mod.fd_matvec(w, data), iters, kernels_seen=seen)
         nbytes = data.element_size() * (rows_d * cols + rows_d) + 4 * cols
         dense_check("fd_matvec", shape, got, matvec_mod.fd_matvec_plain(w, data),
                     MATVEC_RTOL * scale,
@@ -902,7 +1019,10 @@ def run() -> dict:
                     lambda: matvec_mod.fd_matvec_plain(w, data),
                     (lambda: torch.mv(data.t(), w)) if library else None,
                     iters, nbytes, 2.0 * rows_d * cols, dtype=str(data.dtype).split(".")[1],
-                    slice_rows=matvec_mod.slice_rows(rows_d, cols, sms),
+                    row_stride=data.stride(0), event_ms_in_turns=turns,
+                    profiled_kernels_per_call=seen[0],
+                    geometry=dict(zip(("vec", "tx", "slice_rows"), matvec_mod.geometry(
+                        rows_d, cols, data.stride(0), data.data_ptr(), data.element_size(), sms))),
                     tolerance=f"|d| <= {MATVEC_RTOL:g} * sum_k |w_k * D_kn|")
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -912,10 +1032,10 @@ def run() -> dict:
         0, entry_rows, torch.abs(w_blk[entry_ids] * entry_vals))
     matvec_check(f"block 0 f32 [{d0} x {n}]", w_blk, D, col_scale, True, 10)
     i0 = step_rows[0]
-    col0 = D[:, i0:i0 + 1].contiguous()
+    col0 = D[:, i0:i0 + 1]  # read in place, row stride N, as the dense step does
     matvec_check(f"step f32 [{d0} x 1]", w_blk, col0, col_scale[i0:i0 + 1], True, 200)
     D_bf16 = D.to(torch.bfloat16)
-    del D, col0, z_d, g_dense
+    del D, col0, z_d
     torch.cuda.empty_cache()
     w_bf16 = w_blk.to(torch.bfloat16)
     col_scale_bf16 = torch.zeros(n, device=dev).index_add_(
@@ -1163,10 +1283,14 @@ def run() -> dict:
     long_counts = lm_phase("lm_decode_long", ["--arch", "qwen3-14b", "--batch", "1",
                                               "--prompt-len", str(INPUT_SHAPES["decode_32k"].seq_len),
                                               "--gen", "16"], True)
+    # The batch-4 run in float32 at 4 layers (11.5 GB of weights): the twin's
+    # gap there is the kernel's own, without bfloat16's rounding.
+    lm_phase("lm_serve_f32", ["--arch", "qwen3-14b", "--batch", "4", "--prompt-len", "512",
+                              "--gen", "16", "--layers", "4", "--dtype", "float32"], False)
     torch.cuda.empty_cache()
 
-    # 16. The kernels line.  Launches: sparse_margin and prox_update from
-    # the dense main path, the exact-lazy kernels from the lazy_exact_path
+    # 16. The kernels line.  Launches: sparse_margin, block_scatter and
+    # prox_update from the dense main path, the exact-lazy kernels from the lazy_exact_path
     # run, lazy_proba_update from the lazy_proba_path run, the dense-layout
     # kernels from the dense_step run, flash_decode from lm_decode_long.
     # Times at the main path's shapes (block 0, u = 1, its regularizer,
@@ -1204,6 +1328,19 @@ def run() -> dict:
          "ms": snap["kernel_ms"], "host_ms": snap["host_ms"], "plain_ms": snap["plain_ms"],
          "bound_ms": snap["bound_ms"], "bound_by": snap["bound_by"],
          "library_ms": snap["library_ms"], "shape": f"snapshot block 0: R={n}, nnz_l={snap['nnz_l']}"},
+        {"name": "block_scatter", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/block_scatter.cu",
+         "replaces": "src/repro/data/block_csr.py:271",
+         "tpu_kernel": False,
+         "note": "the port's own kernel: the reference's snapshot scatter is a plain "
+                 ".at[].add (no pallas_call); library_ms is index_add_",
+         "launches": counts["block_scatter"], "max_abs_err": scatter_rows[0]["max_abs_err"],
+         "ms": scatter_rows[0]["kernel_ms"], "host_ms": scatter_rows[0]["host_ms"],
+         "plain_ms": scatter_rows[0]["plain_ms"], "bound_ms": scatter_rows[0]["bound_ms"],
+         "bound_by": scatter_rows[0]["bound_by"],
+         "chain_bound_ms": scatter_rows[0]["chain_bound_ms"],
+         "library_ms": scatter_rows[0]["library_ms"],
+         "shape": f"snapshot block 0: d_l={d0}, R={n}, nnz_l={scatter_rows[0]['nnz_l']}"},
         {"name": "prox_update", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/prox_update.cu",
          "replaces": "src/repro/kernels/prox_update.py:84",

@@ -19,8 +19,8 @@ with ``lazy_updates="exact" | "proba"``, :func:`_lazy_inner_epoch`
 (epoch; the reference's ``lax.scan`` becomes a Python loop that never
 waits on the device).
 
-``use_kernels=True`` (the default) routes the gather-margin, the fused
-scatter + update + prox and the lazy steps through
+``use_kernels=True`` (the default) routes the gather-margin, the
+snapshot scatter, the fused scatter + update + prox and the lazy steps through
 :mod:`repro_torch.kernels.ops`: the CUDA kernels on a CUDA device, their
 plain PyTorch versions on the CPU.  ``use_kernels=False`` is the plain
 path written like the reference's jnp oracle.
@@ -117,6 +117,14 @@ def _block_margins(idx, val, w_block, use_kernels: bool) -> torch.Tensor:
     return local_margins(idx, val, w_block)
 
 
+def _block_scatter(bd: BlockCSR, l: int, coeffs, use_kernels: bool) -> torch.Tensor:
+    """Block ``l``'s scatter of the full gradient (Alg 1 line 5)."""
+    idx, val = bd.block(l)
+    if use_kernels:
+        return ops.block_scatter(idx, val, coeffs, bd.block_dims[l], bd.scatter_index(l))
+    return local_scatter(idx, val, coeffs, bd.block_dims[l])
+
+
 def _full_grad_blocks(
     block_data: BlockCSR,
     w: torch.Tensor,
@@ -137,8 +145,7 @@ def _full_grad_blocks(
     s0 = tree_order_sum(parts)
     coeffs = _divide(loss.dvalue(s0, bd.labels), bd.num_instances)
     z_blocks = [
-        local_scatter(bd.indices[l], bd.values[l], coeffs, bd.block_dims[l])
-        for l in range(bd.num_blocks)
+        _block_scatter(bd, l, coeffs, use_kernels) for l in range(bd.num_blocks)
     ]
     z_data = torch.cat(z_blocks) if len(z_blocks) > 1 else z_blocks[0]
     return z_data, s0
@@ -541,8 +548,6 @@ def _sim_margins(idx, val, w_block, use_kernels: bool) -> torch.Tensor:
     return _block_margins(idx, val, w_block, use_kernels)
 
 
-def _sim_scatter(idx, val, coeffs, block_dim: int) -> torch.Tensor:
-    return local_scatter(idx, val, coeffs, block_dim)
 
 
 def _sim_update(w_block, idx, val, coef, z_block, eta_m: float, reg, use_kernels: bool):
@@ -678,9 +683,7 @@ def fdsvrg_worker_simulation(
         ]
         s0 = tree_order_sum(partials)
         coeffs0 = _divide(loss.dvalue(s0, labels), n)
-        z_blocks = [
-            _sim_scatter(*block_data.block(l), coeffs0, block_dims[l]) for l in range(q)
-        ]
+        z_blocks = [_block_scatter(block_data, l, coeffs0, use_kernels) for l in range(q)]
         z_data = torch.cat(z_blocks) if q > 1 else z_blocks[0]
         return z_data, s0
 

@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.core.partition import FeaturePartition
 from repro_torch.data.sparse import PaddedCSR
+from repro_torch.kernels.block_scatter import ScatterIndex, scatter_index
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +43,11 @@ class BlockCSR:
     # The source's global padded-row width, which the cost model charges
     # against (None: fall back to the sum of per-block budgets).
     nnz_max: int | None = None
+    # scatter_index's cache, keyed by (block, device); shared by the
+    # copies that .to() and dataclasses.replace make, which keep the rows.
+    _scatter_index: dict = dataclasses.field(
+        default_factory=dict, compare=False, repr=False
+    )
 
     @property
     def num_blocks(self) -> int:
@@ -82,6 +88,16 @@ class BlockCSR:
             int(self.block_dims[l]),
         )
         return torch.from_numpy(counts).to(self.device)
+
+    def scatter_index(self, l: int) -> ScatterIndex:
+        """Block ``l``'s flat-order index for the snapshot scatter kernel,
+        built at first use on the rows' device and kept."""
+        key = (l, str(self.indices[l].device))
+        if key not in self._scatter_index:
+            self._scatter_index[key] = scatter_index(
+                self.indices[l], self.values[l], int(self.block_dims[l])
+            )
+        return self._scatter_index[key]
 
     def to(self, device: torch.device | str) -> "BlockCSR":
         """The same layout with every tensor on ``device``."""

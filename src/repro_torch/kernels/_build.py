@@ -33,6 +33,9 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = (
     ("repro_sparse_margin", _I, (_P, _P, _P, _P, _I, _I, _P)),
+    # The snapshot scatter: values, coeffs, perm, starts, heavy, z; nnz_l,
+    # dim, heavy ids, HEAVY_MIN; the stream.
+    ("repro_block_scatter", _I, (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
     (
         "repro_prox_update",
         _I,
@@ -55,8 +58,10 @@ _SIGNATURES = (
         (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _P),
     ),
     # The dense-layout step; the int before the stream of fd_matvec and
-    # logistic_grad is the FLOAT_CODES code of the inputs' dtype.
-    ("repro_fd_matvec", _I, (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
+    # logistic_grad is the FLOAT_CODES code of the inputs' dtype.  fd_matvec:
+    # w, D, partial, out, tickets; d, N, the row stride (64-bit), slice rows,
+    # log2 of the threads along the columns, the load width.
+    ("repro_fd_matvec", _I, (_P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _I, _P)),
     ("repro_logistic_grad", _I, (_P, _P, _P, _P, _I, _I, _P)),
     ("repro_svrg_update", _I, (_P, _P, _P, _P, _I, _F, _F, _P)),
     ("repro_fused_update", _I, (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P)),

@@ -1,17 +1,20 @@
 """fd_matvec: the margins of one dense feature block, ``S = wᵀD``.
 
-    S[n] = sum_k w[k] * D[k, n]       w [d], D [d, N] row-major, S float32 [N]
+    S[n] = sum_k w[k] * D[k, n]       w [d], D [d, N], S float32 [N]
 
 The CUDA kernel (``csrc/fd_matvec.cu``) replaces the Pallas TPU kernel
 ``repro/kernels/fd_matvec.py::fd_matvec``, the full-gradient phase of the
 dense layout.  ``w`` and ``D`` are float32 or bfloat16 (one dtype); the
-products and sums are float32.  The kernel splits ``d`` into slices of
-:func:`slice_rows` rows: one thread of a block of :data:`THREADS`
-columns sums its slice in increasing ``k``, and a second launch adds the
-slices' partials in order — no atomics, so the result is deterministic.
-This module owns that geometry; the C side checks it only against the
-launch limits (at most 1024 threads, 48 KB of staged ``w``, 65535
-slices).  Beside it is
+products and sums are float32.  ``D`` has unit column stride and any row
+stride, so one column of a larger matrix, ``D[:, i:i+1]``, is read in
+place.  One launch: a grid of column blocks × row slices, each block
+summing its slice in increasing ``k`` (its threads split the rows at
+small ``N`` and add in a fixed tree), and the last block of a column
+block to finish adds the slices' partials in slice order — no float
+atomics, so the result is deterministic.  This module owns the geometry
+(:func:`geometry`: the load width, the threads along the columns and the
+slice rows, from ``N``, the row stride and the card's SM count) and the
+per-stream ticket counters the last block takes.  Beside it is
 :func:`fd_matvec_plain`, ``w.float() @ D.float()`` (the CPU path and the
 card-side yardstick; on the card it needs TF32 off, PyTorch's default).
 
@@ -28,18 +31,39 @@ from repro_torch.kernels import _build
 
 launches = 0
 
-THREADS = 256  # columns per block of the partial-sum launch
-MAX_SLICE_ROWS = 4096  # 16 KB of staged w, so 8 blocks fit on an SM
-BLOCKS_PER_SM = 4
+THREADS = 256  # threads per block: TX along the columns, TY = THREADS / TX along the rows
+MAX_LOAD_BYTES = 16  # a thread's columns in one row: one load of at most 16 bytes
+SHARED_BYTES = 48 * 1024 - 1088  # staged w plus the row tree's scratch, without opting in
+BLOCKS_PER_SM = 64  # the grid aims at many waves of short blocks
+MIN_ROWS_PER_THREAD = 8  # one unrolled batch of loads
+MAX_SLICES = 65535
+
+_tickets: dict[tuple[int, int], torch.Tensor] = {}
 
 
-def slice_rows(d: int, n: int, sms: int) -> int:
-    """Rows of ``D`` per slice on a card of ``sms`` SMs: enough slices
-    that the grid has about ``BLOCKS_PER_SM * sms`` blocks (the only
-    parallelism at ``N = 1``), at most ``MAX_SLICE_ROWS`` and at least 64."""
-    col_blocks = max(1, -(-n // THREADS))
-    slices = max(1, -(-(BLOCKS_PER_SM * sms) // col_blocks))
-    return min(MAX_SLICE_ROWS, max(64, -(-d // slices)))
+def geometry(d: int, n: int, ld: int, addr: int, elt: int, sms: int) -> tuple[int, int, int]:
+    """``(vec, tx, slice_rows)`` for ``D [d, n]`` of ``elt``-byte elements
+    at byte address ``addr`` with row stride ``ld`` elements, on a card of
+    ``sms`` SMs.  ``vec``: the columns a thread loads at once, the widest
+    power of two (at most ``MAX_LOAD_BYTES``) that ``n``, ``ld`` and the
+    address allow.  ``tx``: threads along the columns, a power of two, just
+    enough to cover ``n`` (1 at ``N = 1``).  ``slice_rows``: about
+    ``BLOCKS_PER_SM * sms`` blocks, each thread at least
+    ``MIN_ROWS_PER_THREAD`` rows, the staged rows and the tree's scratch
+    within ``SHARED_BYTES``."""
+    vec = MAX_LOAD_BYTES // elt
+    while vec > 1 and (n % vec or ld % vec or addr % (vec * elt)):
+        vec //= 2
+    tx = 1
+    while tx < THREADS and tx * vec < n:
+        tx *= 2
+    col_blocks = -(-n // (tx * vec))
+    slices = max(1, (BLOCKS_PER_SM * sms) // col_blocks)
+    rows = max(-(-d // slices), MIN_ROWS_PER_THREAD * (THREADS // tx))
+    scratch = 4 * THREADS * vec if tx < THREADS else 0
+    rows = min(rows, (SHARED_BYTES - scratch) // 4)
+    rows = max(rows, -(-d // MAX_SLICES))
+    return vec, tx, rows
 
 
 def fd_matvec_plain(w: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
@@ -47,15 +71,26 @@ def fd_matvec_plain(w: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     return w.float() @ data.float()
 
 
+def _ticket_buffer(dev: torch.device, stream: int, size: int) -> torch.Tensor:
+    """Zeroed int32 counters for this stream's launches (each launch leaves
+    them zero again); calls on one stream run in order, so they share them."""
+    key = (dev.index, stream)
+    buf = _tickets.get(key)
+    if buf is None or buf.numel() < size:
+        buf = torch.zeros(max(size, 1024), dtype=torch.int32, device=dev)
+        _tickets[key] = buf
+    return buf
+
+
 def fd_matvec(
     w: torch.Tensor,  # float32 or bfloat16 [d]
-    data: torch.Tensor,  # same dtype [d, N], row-major
+    data: torch.Tensor,  # same dtype [d, N], unit column stride, any row stride
 ) -> torch.Tensor:  # float32 [N]
     """Launch the CUDA kernel on ``torch.cuda.current_stream()``.
 
-    Raises on a CPU tensor, another dtype, a shape mismatch or a
-    non-contiguous tensor (pass ``D[:, i:i+1].contiguous()`` for one
-    column).
+    Raises on a CPU tensor, another dtype, a shape mismatch, a
+    non-contiguous ``w``, or a ``D`` whose columns are not adjacent
+    (``D[:, i:i+1]`` is taken as it is).
     """
     global launches
     if not w.is_cuda:
@@ -64,17 +99,28 @@ def fd_matvec(
     code = _build.float_code("fd_matvec", "w", w)
     _build.require_tensor("fd_matvec", "w", w, w.dtype, dev, (None,))
     (d,) = w.shape
-    _build.require_tensor("fd_matvec", "data", data, w.dtype, dev, (d, None))
+    if data.dtype != w.dtype or data.device != dev:
+        raise TypeError(f"fd_matvec: data must be {w.dtype} on {dev}, got {data.dtype} on "
+                        f"{data.device}")
+    if data.dim() != 2 or data.shape[0] != d:
+        raise ValueError(f"fd_matvec: data has shape {tuple(data.shape)}, expected ({d}, N)")
     n = data.shape[1]
-    rows = slice_rows(d, n, torch.cuda.get_device_properties(dev).multi_processor_count)
+    ld = data.stride(0) if d > 1 else n
+    if d < 1 or n < 1 or (n > 1 and data.stride(1) != 1) or ld < n:
+        raise ValueError(f"fd_matvec: data {tuple(data.shape)} with strides {data.stride()} "
+                         f"not taken (d, N >= 1, unit column stride, row stride >= N)")
+    vec, tx, rows = geometry(d, n, ld, data.data_ptr(), data.element_size(),
+                             torch.cuda.get_device_properties(dev).multi_processor_count)
+    col_blocks = -(-n // (tx * vec))
     partial = torch.empty((-(-d // rows), n), dtype=torch.float32, device=dev)
     out = torch.empty((n,), dtype=torch.float32, device=dev)
     lib = _build.load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        tickets = _ticket_buffer(dev, stream, col_blocks)
         rc = lib.repro_fd_matvec(
             w.data_ptr(), data.data_ptr(), partial.data_ptr(), out.data_ptr(),
-            d, n, rows, THREADS, code, stream,
+            tickets.data_ptr(), d, n, ld, rows, tx.bit_length() - 1, vec, code, stream,
         )
     _build.check(rc, "fd_matvec")
     launches += 1

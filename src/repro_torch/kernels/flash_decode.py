@@ -10,17 +10,19 @@ the reference's decode.
 The CUDA kernel (``csrc/flash_decode.cu``) replaces the Pallas TPU kernel
 ``repro/kernels/flash_decode.py::flash_decode`` (one request per call,
 validity as an additive 0 / -1e30 bias).  It is a flash-decoding split
-over S: a first launch of grid ``(B * Hkv, n_split)`` leaves one
-``(m, l, acc)`` per split, a second launch combines the splits in split
-order — two CUDA launches per call, one counted launch, no atomics.
-Positions at or past ``length`` are skipped (exactly what their -1e30
-bias does in float32).  This module owns the geometry
-(:func:`num_splits`, from the card's SM count) and allocates the
-partials.  Beside it is :func:`flash_decode_plain`, the arithmetic of
-``repro.models.attention.attention_decode``: float32 scores over the
-whole cache, ``where(valid, ., -1e30)``, max, exp, sum, weighted sum,
-``/ max(l, 1e-30)``; it also takes the reference decode's ``softcap``
-and sliding ``window``, which the kernel does not.
+over S: each block of grid ``(B * Hkv, n_split)`` streams its positions
+through per-warp rings of K/V tiles in shared memory (``cp.async``), on
+the tensor cores in bfloat16 at ``Dh <= 128`` and in float32 FFMA
+otherwise, and leaves one ``(m, l, acc)`` per split; a second launch combines the splits
+in split order, or with one split the block writes ``out`` itself — one
+counted launch per call, no atomics.  Positions at or past ``length`` are
+skipped (exactly what their -1e30 bias does in float32).  This module
+owns the geometry (:func:`num_splits`, from the card's SM count) and
+allocates the partials.  Beside it is :func:`flash_decode_plain`, the
+arithmetic of ``repro.models.attention.attention_decode``: float32 scores
+over the whole cache, ``where(valid, ., -1e30)``, max, exp, sum, weighted
+sum, ``/ max(l, 1e-30)``; it also takes the reference decode's
+``softcap`` and sliding ``window``, which the kernel does not.
 
 Stated tolerance, kernel vs plain on the card: ``|d| <= 2e-5 * max|v|``
 over the valid prefix (the scores' Dh products and the up to 524,288
@@ -39,17 +41,21 @@ launches = 0
 MASK_VALUE = -1e30
 HEAD_DIMS = (32, 64, 128, 256)
 MAX_GROUP = 16
-MAX_GROUP_X_DH = 2048  # q rows and the warps' accumulators fit 48 KB of shared memory
-BLOCKS_PER_SM = 4
-MIN_SPLIT_ROWS = 64
+MAX_GROUP_X_DH = 2048  # q rows and the warps' accumulators fit the shared memory
+BLOCKS_PER_SM = 2  # resident split blocks an SM at qwen3-14b's bfloat16, Dh 128 (104 KB each)
+WAVES = 1  # the grid aims at one wave of resident blocks: fewer, longer splits stream best
+MIN_SPLIT_ROWS = 128  # two 16-row tiles for each of a block's four warps
 MAX_SPLITS = 65535
+ALIGN = 16  # cp.async copies 16 bytes: k, v and their batch stride
 
 
 def num_splits(batch_heads: int, length: int, sms: int) -> tuple[int, int]:
-    """``(n_split, rows_per_split)``: about ``BLOCKS_PER_SM * sms`` blocks
-    over the ``batch_heads`` (request, KV head) pairs, at least
-    ``MIN_SPLIT_ROWS`` positions a split, and no empty split."""
-    want = max(1, -(-(BLOCKS_PER_SM * sms) // batch_heads))
+    """``(n_split, rows_per_split)``: about ``WAVES * BLOCKS_PER_SM * sms``
+    blocks over the ``batch_heads`` (request, KV head) pairs, never more
+    (so the last wave is full), at least ``MIN_SPLIT_ROWS`` positions a
+    split, and no empty split.  One split (one launch) when ``length`` is
+    at most ``MIN_SPLIT_ROWS`` or the pairs alone fill the waves."""
+    want = max(1, (WAVES * BLOCKS_PER_SM * sms) // batch_heads)
     n = max(1, min(want, -(-length // MIN_SPLIT_ROWS), MAX_SPLITS))
     rows = -(-length // n)
     return -(-length // rows), rows
@@ -121,15 +127,18 @@ def flash_decode(
     if dh not in HEAD_DIMS or not 1 <= group <= MAX_GROUP or group * dh > MAX_GROUP_X_DH:
         raise ValueError(f"flash_decode: Dh {dh} (one of {HEAD_DIMS}) and group {group} "
                          f"(<= {MAX_GROUP}, group * Dh <= {MAX_GROUP_X_DH}) not taken")
-    align = dh // 32 * q.element_size()
-    if k.data_ptr() % align or v.data_ptr() % align:
-        raise ValueError(f"flash_decode: k and v must be aligned to {align} bytes")
+    if (k.data_ptr() % ALIGN or v.data_ptr() % ALIGN
+            or k.stride(0) * k.element_size() % ALIGN):
+        raise ValueError(f"flash_decode: k, v and their batch stride must be aligned to "
+                         f"{ALIGN} bytes")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     n_split, rows = num_splits(b * hkv, length, sms)
-    m_part = torch.empty((b * hkv, n_split, group), dtype=torch.float32, device=dev)
-    l_part = torch.empty_like(m_part)
-    acc_part = torch.empty((b * hkv, n_split, group, dh), dtype=torch.float32, device=dev)
     out = torch.empty((b, hkv, group, dh), dtype=torch.float32, device=dev)
+    m_part = l_part = acc_part = out  # one split: the kernel writes out alone
+    if n_split > 1:
+        m_part = torch.empty((b * hkv, n_split, group), dtype=torch.float32, device=dev)
+        l_part = torch.empty_like(m_part)
+        acc_part = torch.empty((b * hkv, n_split, group, dh), dtype=torch.float32, device=dev)
     lib = _build.load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -1,8 +1,9 @@
 """Public wrappers around the kernels, dispatching on the tensors' device.
 
-Port of ``repro.kernels.ops`` for the kernels of the FD-SVRG main path,
-its lazy inner steps, the dense-layout step and LM decode attention.  On
-a CUDA tensor each wrapper launches its hand-written kernel (or raises);
+Port of ``repro.kernels.ops`` for the kernels of the FD-SVRG main path
+(with the port's own snapshot scatter), its lazy inner steps, the
+dense-layout step and LM decode attention.  On a CUDA tensor each
+wrapper launches its hand-written kernel (or raises);
 on a CPU tensor it takes the kernel's plain PyTorch version.  There is
 no fallback from one to the other.  The reference's TPU-only keywords
 (``block_rows``, ``block_k``, ``block_n``, ``block``, ``block_s``,
@@ -14,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.kernels import block_scatter as _scatter
 from repro_torch.kernels import fd_matvec as _matvec
 from repro_torch.kernels import flash_decode as _decode
 from repro_torch.kernels import fused_update as _fused
@@ -43,6 +45,22 @@ def sparse_margins(
     if _route(w_block, "sparse_margin"):
         return _margin.sparse_margin(indices, values, w_block)
     return _margin.sparse_margin_plain(indices, values, w_block)
+
+
+def block_scatter(
+    indices: torch.Tensor,  # int32[N, nnz_l], block-LOCAL ids (BlockCSR rows)
+    values: torch.Tensor,  # float32[N, nnz_l]
+    coeffs: torch.Tensor,  # float32[N]
+    block_dim: int,
+    index: _scatter.ScatterIndex,  # BlockCSR.scatter_index(l) of these rows
+) -> torch.Tensor:  # float32[block_dim]
+    """sum_i coeffs_i * x_i as a dense block vector, each id's terms added
+    in flat order: the snapshot's scatter (Alg 1 line 5), deterministic
+    and bitwise equal to the CPU's ``index_add_``.  The CPU takes the
+    plain version and leaves ``index`` unread."""
+    if _route(values, "block_scatter"):
+        return _scatter.block_scatter(values, coeffs, index)
+    return _scatter.block_scatter_plain(indices, values, coeffs, block_dim)
 
 
 def fused_block_update(
@@ -203,9 +221,10 @@ def lazy_block_proba_update(
 
 def margins_dense(
     w: torch.Tensor,  # float32 or bfloat16 [d]
-    data: torch.Tensor,  # same dtype [d, N], contiguous (D[:, i:i+1].contiguous())
+    data: torch.Tensor,  # same dtype [d, N], unit column stride, any row stride
 ) -> torch.Tensor:  # float32 [N]
-    """S = wᵀD, the full-gradient-phase margins for one feature block."""
+    """S = wᵀD, the full-gradient-phase margins for one feature block; one
+    column of a larger matrix, ``D[:, i:i+1]``, is read in place."""
     if _route(w, "fd_matvec"):
         return _matvec.fd_matvec(w, data)
     return _matvec.fd_matvec_plain(w, data)
@@ -274,13 +293,14 @@ def decode_attention_batched(
     return _decode.flash_decode_plain(q, k, v, length, scale)
 
 
-_COUNTED = (_margin, _prox, _fused, _matvec, _logistic, _svrg, _decode)
+_COUNTED = (_scatter, _margin, _prox, _fused, _matvec, _logistic, _svrg, _decode)
 
 
 def launch_counts() -> dict[str, int]:
     """Launches of each kernel since the last :func:`reset_launch_counts`."""
     return {
         "sparse_margin": _margin.launches,
+        "block_scatter": _scatter.launches,
         "prox_update": _prox.launches,
         **_lazy.launches,
         "fused_update": _fused.launches,
@@ -299,6 +319,7 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
+    "block_scatter",
     "decode_attention",
     "decode_attention_batched",
     "fused_block_prox_update",

@@ -4,6 +4,8 @@
         --batch 4 --prompt-len 512 --gen 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \
         --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \
+        --layers 4 --dtype float32
 
 Port of ``repro.launch.serve`` for the presets of
 ``repro_torch.configs.ARCHS``.  It runs on ``cuda`` unless ``--device``
@@ -63,11 +65,19 @@ def run(argv=None) -> ServeRun:
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--device", default=None,
                     help="cuda (the default; raises without a card) or cpu")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (full width)")
+    ap.add_argument("--dtype", default=None, choices=("bfloat16", "float32"),
+                    help="the weights' and activations' dtype (default: the preset's)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced_config(cfg)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    if args.dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=args.dtype)
     device = resolve_device(args.device)
     ctx = unsharded_ctx()
     params = transformer.init_params(cfg, 0, device, tp=1)

@@ -95,20 +95,45 @@ def test_margins_dense_matches_reference_kernel(d, n, dtype):
 
 
 @pytest.mark.parametrize("d,n", [(1, 1), (169_399, 1), (169_399, 19_954), (777, 130),
-                                 (29_890_095, 1), (5000, 300)])
+                                 (29_890_095, 1), (5000, 300), (169_399, 2), (169_399, 7),
+                                 (5000, 7)])
 def test_fd_matvec_slices_fit_the_kernel(d, n):
-    """The slicing the wrapper picks on an H100 (132 SMs) is one the kernel
-    takes: at most 4096 rows staged (48 KB is the launch limit), at most
-    65535 slices, every row in exactly one slice."""
+    """The geometry the wrapper picks on an H100 (132 SMs) is one the kernel
+    takes, for float32 and bfloat16, a contiguous D and a column view of a
+    wider one (row stride ld > N): a thread's load is a power of two of
+    elements that divides N, ld and the address, at most 16 bytes (16
+    where they are aligned); a power of two of threads along the columns,
+    just enough to cover N; the staged rows and the tree's scratch within
+    48 KB, at most 65535 slices, every row in exactly one slice; about
+    64 blocks an SM unless a thread would get fewer than 8 rows or the
+    slices are full; at N = 1 one column a thread and the rows give the
+    blocks."""
     sms = 132
-    rows = matvec_mod.slice_rows(d, n, sms)
-    slices = -(-d // rows)
-    assert 1 <= rows <= matvec_mod.MAX_SLICE_ROWS and 4 * rows <= 48 * 1024
-    assert slices <= 65535 and 1 <= matvec_mod.THREADS <= 1024
-    assert (slices - 1) * rows < d <= slices * rows
-    target = matvec_mod.BLOCKS_PER_SM * sms
-    if n == 1 and d >= 64 * target:
-        assert slices >= target  # one column: rows give the blocks
+    for elt in (4, 2):
+        for ld, addr in ((n, 256), (3 * n + 1, 256), (n, 256 + elt)):
+            vec, tx, rows = matvec_mod.geometry(d, n, ld, addr, elt, sms)
+            assert vec * elt <= matvec_mod.MAX_LOAD_BYTES and 16 % (vec * elt) == 0
+            assert n % vec == 0 and ld % vec == 0 and addr % (vec * elt) == 0
+            if n % (16 // elt) == 0 and ld % (16 // elt) == 0 and addr % 16 == 0:
+                assert vec == 16 // elt  # 16-byte loads where they are aligned
+            assert tx & (tx - 1) == 0 and 1 <= tx <= matvec_mod.THREADS
+            assert tx * vec >= n or tx == matvec_mod.THREADS
+            assert tx == 1 or (tx // 2) * vec < n
+            col_blocks = -(-n // (tx * vec))
+            slices = -(-d // rows)
+            ty = matvec_mod.THREADS // tx
+            scratch = 4 * matvec_mod.THREADS * vec if ty > 1 else 0
+            assert rows >= 1
+            assert 4 * rows + scratch <= matvec_mod.SHARED_BYTES
+            assert slices <= 65535 and (slices - 1) * rows < d <= slices * rows
+            target = matvec_mod.BLOCKS_PER_SM * sms
+            full = (matvec_mod.SHARED_BYTES - scratch) // 4
+            assert (col_blocks * slices <= max(col_blocks, target)
+                    or rows in (matvec_mod.MIN_ROWS_PER_THREAD * ty, full))
+            if n == 1:
+                assert (vec, tx) == (1, 1)
+                if d >= matvec_mod.MIN_ROWS_PER_THREAD * ty * sms:
+                    assert slices >= sms  # one column: the rows give the blocks
 
 
 # ---------------------------------------------------------------------------
@@ -375,6 +400,29 @@ def test_fd_matvec_kernel_matches_plain_on_card(cuda_device, d, n, dtype):
     w = torch.from_numpy(rng.normal(size=d).astype(np.float32)).to(cuda_device, td)
     D = torch.from_numpy(rng.normal(size=(d, n)).astype(np.float32)).to(cuda_device, td)
     got = matvec_mod.fd_matvec(w, D)
+    want = matvec_mod.fd_matvec_plain(w, D)
+    scale = torch.sum(torch.abs(w.float()[:, None] * D.float()), dim=0)
+    assert got.dtype == torch.float32 and got.shape == (n,)
+    assert bool(torch.all(torch.abs(got - want) <= 1e-5 * scale))
+    assert torch.equal(got, matvec_mod.fd_matvec(w, D))  # deterministic
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1000, 169_399])
+@pytest.mark.parametrize("n,ld", [(1, 1), (7, 7), (1, 300), (7, 300)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_fd_matvec_narrow_and_strided_on_card(cuda_device, d, n, ld, dtype):
+    """N = 1 and 7, contiguous and as a column view of a [d, 300] matrix
+    (row stride 300): within the tolerance, deterministic, one launch."""
+    td = DTYPES[dtype][1]
+    rng = np.random.default_rng(d + n + ld)
+    w = torch.from_numpy(rng.normal(size=d).astype(np.float32)).to(cuda_device, td)
+    wide = torch.from_numpy(rng.normal(size=(d, ld)).astype(np.float32)).to(cuda_device, td)
+    D = wide[:, 3:3 + n] if ld > n else wide
+    before = matvec_mod.launches
+    got = matvec_mod.fd_matvec(w, D)
+    torch.cuda.synchronize()
+    assert matvec_mod.launches == before + 1
     want = matvec_mod.fd_matvec_plain(w, D)
     scale = torch.sum(torch.abs(w.float()[:, None] * D.float()), dim=0)
     assert got.dtype == torch.float32 and got.shape == (n,)

@@ -26,6 +26,7 @@ import torch
 from repro.kernels import ops as r_ops
 
 from repro_torch.kernels import _build, ops
+from repro_torch.kernels import block_scatter as scatter_mod
 from repro_torch.kernels import fd_matvec as matvec_mod
 from repro_torch.kernels import flash_decode as decode_mod
 from repro_torch.kernels import fused_update as fused_mod
@@ -214,16 +215,16 @@ def test_launch_counters_reset():
         lazy_mod.launches[name] = k + 1
     fused_mod.launches, matvec_mod.launches = 8, 9
     logistic_mod.launches, svrg_mod.launches = 10, 11
-    decode_mod.launches = 12
+    decode_mod.launches, scatter_mod.launches = 12, 13
     assert ops.launch_counts() == {
-        "sparse_margin": 5, "prox_update": 7, "lazy_catchup": 1,
+        "sparse_margin": 5, "block_scatter": 13, "prox_update": 7, "lazy_catchup": 1,
         "lazy_touch_update": 2, "lazy_flush": 3, "lazy_proba_update": 4,
         "fused_update": 8, "fd_matvec": 9, "logistic_grad": 10, "svrg_update": 11,
         "flash_decode": 12,
     }
     ops.reset_launch_counts()
     assert ops.launch_counts() == {
-        "sparse_margin": 0, "prox_update": 0, "lazy_catchup": 0,
+        "sparse_margin": 0, "block_scatter": 0, "prox_update": 0, "lazy_catchup": 0,
         "lazy_touch_update": 0, "lazy_flush": 0, "lazy_proba_update": 0,
         "fused_update": 0, "fd_matvec": 0, "logistic_grad": 0, "svrg_update": 0,
         "flash_decode": 0,
@@ -232,12 +233,13 @@ def test_launch_counters_reset():
 
 def test_kernel_sources_declare_their_c_entry_points_and_origin():
     names = [s.name for s in _build.sources()]
-    assert names == ["fd_matvec.cu", "flash_decode.cu", "fused_update.cu", "lazy_update.cu",
-                     "logistic_grad.cu", "prox_update.cu", "sparse_margin.cu", "svrg_update.cu"]
+    assert names == ["block_scatter.cu", "fd_matvec.cu", "flash_decode.cu", "fused_update.cu",
+                     "lazy_update.cu", "logistic_grad.cu", "prox_update.cu", "sparse_margin.cu",
+                     "svrg_update.cu"]
     assert [h.name for h in _build.headers()] == ["touched.cuh"]
     text = {s.name: s.read_text() for s in _build.sources() + _build.headers()}
     entries = [e for e, _, _ in _build._SIGNATURES]
-    assert entries == ["repro_sparse_margin", "repro_prox_update", "repro_lazy_catchup",
+    assert entries == ["repro_sparse_margin", "repro_block_scatter", "repro_prox_update", "repro_lazy_catchup",
                        "repro_lazy_touch_update", "repro_lazy_flush",
                        "repro_lazy_proba_update", "repro_fd_matvec", "repro_logistic_grad",
                        "repro_svrg_update", "repro_fused_update", "repro_flash_decode"]
@@ -247,6 +249,9 @@ def test_kernel_sources_declare_their_c_entry_points_and_origin():
         assert params.count(",") + 1 == len(argtypes), entry
     assert "repro/kernels/sparse_margin.py" in text["sparse_margin.cu"]
     assert "repro/kernels/prox_update.py" in text["prox_update.cu"]
+    # The port's own kernel: the reference's scatter is a plain .at[].add.
+    assert "repro/data/block_csr.py" in text["block_scatter.cu"]
+    assert "the pallas_call at" not in text["block_scatter.cu"]
     for line in (":125", ":177", ":224", ":266"):
         assert f"lazy_update.py{line}" in text["lazy_update.cu"]
     for name, line in (("fused_update", 73), ("fd_matvec", 61), ("logistic_grad", 46),
@@ -285,8 +290,9 @@ def test_source_hash_covers_the_headers(monkeypatch, tmp_path):
     assert _build.source_hash() != h
     # The header is hashed but never compiled on its own.
     assert [p.name for p in _build.sources()] == \
-        ["fd_matvec.cu", "flash_decode.cu", "fused_update.cu", "lazy_update.cu",
-         "logistic_grad.cu", "prox_update.cu", "sparse_margin.cu", "svrg_update.cu"]
+        ["block_scatter.cu", "fd_matvec.cu", "flash_decode.cu", "fused_update.cu",
+         "lazy_update.cu", "logistic_grad.cu", "prox_update.cu", "sparse_margin.cu",
+         "svrg_update.cu"]
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -332,13 +332,27 @@ def test_decode_attention_rejects_bad_lengths_and_cpu_launches():
 
 
 @pytest.mark.parametrize("batch_heads,length", [(8, 1), (8, 700), (8, 32_768), (32, 528),
-                                                (8, 524_288), (4 * 8, 524_288), (1, 63)])
+                                                (8, 524_288), (4 * 8, 524_288), (1, 63),
+                                                (8, 128), (32, 100), (4096, 32_768),
+                                                (32, 32_768)])
 def test_flash_decode_splits_cover_the_prefix(batch_heads, length):
-    n_split, rows = decode_mod.num_splits(batch_heads, length, 132)
+    """The split geometry on an H100 (132 SMs): every position in exactly
+    one non-empty split of at least MIN_SPLIT_ROWS (but for a shorter
+    prefix), at most WAVES waves of resident blocks, one split (so one
+    launch, no combine) for a short prefix or when the pairs fill the waves,
+    and qwen3-14b's long decodes a full wave: B = 1 x 32,768 (8 pairs) 33
+    splits, B = 4 x 32,768 (32 pairs) 8."""
+    sms = 132
+    n_split, rows = decode_mod.num_splits(batch_heads, length, sms)
     assert 1 <= n_split <= decode_mod.MAX_SPLITS and rows >= 1
     assert (n_split - 1) * rows < length <= n_split * rows  # no empty split
     assert n_split <= -(-length // decode_mod.MIN_SPLIT_ROWS)
-    assert n_split * batch_heads <= max(batch_heads, decode_mod.BLOCKS_PER_SM * 132 + batch_heads)
+    target = decode_mod.WAVES * decode_mod.BLOCKS_PER_SM * sms
+    assert n_split * batch_heads <= max(batch_heads, target)
+    single = length <= decode_mod.MIN_SPLIT_ROWS or batch_heads * 2 > target
+    assert (n_split == 1) == single
+    if length == 32_768 and batch_heads in (8, 32):
+        assert n_split * batch_heads > target - batch_heads  # the wave is full
 
 
 # ---------------------------------------------------------------------------
@@ -426,6 +440,20 @@ def test_launch_serve_main_matches_reference(monkeypatch, capsys):
     assert "ms/token" in capsys.readouterr().out
 
 
+def test_launch_serve_cuts_depth_and_sets_dtype_on_request():
+    """--layers and --dtype reach the config, the weights, the cache and the
+    logits; the twin of a cut float32 run is the same arithmetic."""
+    r = t_launch.run(["--arch", "qwen3-14b", "--reduced", "--device", "cpu", "--batch", "1",
+                      "--prompt-len", "4", "--gen", "2", "--layers", "4", "--dtype", "float32"])
+    assert (r.cfg.num_layers, r.cfg.dtype) == (4, "float32")
+    assert r.cache[0]["k"].shape[0] == 4 and r.cache[0]["k"].dtype == torch.float32
+    leaves = [t for t in jax.tree_util.tree_leaves(r.params) if torch.is_floating_point(t)]
+    assert leaves and all(t.dtype == torch.float32 for t in leaves)
+    assert r.tokens.shape == (1, 2) and all(lg.dtype == torch.float32 for lg in r.logits)
+    with pytest.raises(SystemExit):
+        t_launch.run(["--arch", "qwen3-14b", "--reduced", "--device", "cpu", "--dtype", "int8"])
+
+
 def test_entry_points_raise_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -507,6 +535,27 @@ def test_flash_decode_kernel_matches_plain_on_card(cuda_device, b, h, hkv, dh, s
     assert float(torch.max(torch.abs(got - want))) <= tol
     with pytest.raises(ValueError, match="outside"):
         decode_mod.flash_decode(q, k, v, s + 1, 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh,group", [(dh, g) for dh in (64, 128, 256) for g in (1, 5, 16)
+                                      if g * dh <= decode_mod.MAX_GROUP_X_DH])
+@pytest.mark.parametrize("length", [5, 17, 129, 333])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_ragged_lengths_on_card(cuda_device, dh, group, length, dtype):
+    """Ragged prefixes: inside one 16-row tile (5), one row past a tile (17),
+    one row past the one-split limit (129: two splits and the combine), and
+    no multiple of a tile (333); two requests, two KV heads."""
+    rng = np.random.default_rng(dh * group + length)
+    q = _t(rng.normal(size=(2, 2, group, dh)).astype(np.float32)).to(cuda_device, dtype)
+    k, v = (_t(rng.normal(size=(2, length + 7, 2, dh)).astype(np.float32)).to(cuda_device, dtype)
+            for _ in range(2))
+    got = decode_mod.flash_decode(q, k, v, length, dh ** -0.5)
+    want = decode_mod.flash_decode_plain(q, k, v, length, dh ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(got, decode_mod.flash_decode(q, k, v, length, dh ** -0.5))
+    tol = 2e-5 * float(torch.max(torch.abs(v[:, :length].float())))
+    assert float(torch.max(torch.abs(got - want))) <= tol
 
 
 @pytest.mark.cuda
