@@ -7,8 +7,11 @@ Run from the root of a checkout, on a machine with a CUDA card:
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds each kernel against its plain PyTorch version at the shapes of the
-FD-SVRG main path (full-width news20, q = 8; the snapshot scatter bit for
-bit against the CPU's ``index_add_`` in all 8 blocks), drives that main
+FD-SVRG main path (full-width news20, q = 8; the snapshot scatter, one
+launch for all 8 blocks, bit for bit against the CPU's ``index_add_`` in
+every block; the touched-pass kernels bit for bit against their plain
+versions on the CPU at u = 1, 8 and 64, the lazy ones also on a block
+of kdd2010's width), drives that main
 path through ``run_fdsvrg(use_kernels=True)`` with exact meter and
 launch-count checks, holds two short kernel-path runs bitwise equal and
 one against the plain path, runs the serial path, and scores the trained
@@ -195,13 +198,19 @@ def device_ms(torch, fn, iters: int, before=None, kernels_seen=None) -> float:
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            if before is not None:
-                before()
-            fn()
-        torch.cuda.synchronize()
-    us, calls = device_kernels(torch, prof)
+    # A trace can come back without a single kernel record (seen once in a
+    # few hundred traces on an H100 80GB HBM3 at 700 W): trace again, up to
+    # three times, before failing.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                if before is not None:
+                    before()
+                fn()
+            torch.cuda.synchronize()
+        us, calls = device_kernels(torch, prof)
+        if sum(us.values()) > 0.0:
+            break
     require(sum(us.values()) > 0.0, "the profiler recorded no device time")
     if kernels_seen is not None:
         kernels_seen.append(sum(calls.values()) / iters)
@@ -234,6 +243,21 @@ def ulp(torch, x):
     """The float32 spacing above ``|x|``."""
     a = torch.abs(x.float())
     return torch.nextafter(a, torch.full_like(a, math.inf)) - a
+
+
+def cpu_args(args: tuple) -> tuple:
+    """The arguments with every tensor copied to the CPU (in-place plain
+    versions write the copies)."""
+    return tuple(a.cpu().clone() if hasattr(a, "cpu") else a for a in args)
+
+
+def bitwise_vs_cpu(got, want_cpu) -> bool:
+    """The kernel's output equals the CPU plain version's bit for bit: the
+    CPU's index_add_ adds in flat order, as the kernel does, where the
+    card's plain version adds repeated ids with atomics."""
+    import torch
+
+    return torch.equal(got.cpu().view(torch.int32), want_cpu.view(torch.int32))
 
 
 def step_flops(lam1: float, lam2: float, proba: bool = False) -> float:
@@ -379,22 +403,39 @@ def run() -> dict:
         emit(row)
         margin_rows[label] = row
 
-    # The snapshot scatter at the main path's first snapshot (w = 0): the
-    # kernel's z, block by block, equals the CPU's flat-order index_add_
-    # (local_scatter) of the same rows and coefficients bit for bit.
+    # The snapshot scatter at the main path's first snapshot (w = 0): one
+    # launch for all 8 blocks, whose z, block by block, equals the CPU's
+    # flat-order index_add_ (local_scatter) of the same rows and
+    # coefficients bit for bit; then each block alone (the q = 1 case of
+    # the same kernel), bitwise again.
     loss = losses.LOSSES[cfg_preset.loss]
     ops.reset_launch_counts()
     z_first, s_first = _full_grad_blocks(bd8, torch.zeros(data.dim, device=dev), loss, True)
-    require(ops.launch_counts()["block_scatter"] == Q, "the snapshot launched no block_scatter")
+    require(ops.launch_counts()["block_scatter"] == 1,
+            f"the snapshot launched block_scatter {ops.launch_counts()['block_scatter']} times")
     coeffs_first = _divide(loss.dvalue(s_first, bd8.labels), n)
     coeffs_cpu = coeffs_first.cpu()
     sm_clock_hz = float(card_line("clocks.max.sm").split()[0]) * 1e6
+    snap_index = bd8.snapshot_index()
+
+    def chain_ms(values, index, times=3):
+        """The longest heavy fold's own time inside a launch (%globaltimer
+        at its start and end), the mean of ``times`` cold launches."""
+        timing = torch.zeros(2 * index.heavy.numel(), dtype=torch.int64, device=dev)
+        spans = []
+        for _ in range(times):
+            flush()
+            scatter_mod.block_scatter(values, coeffs_first, index, timing)
+            torch.cuda.synchronize()
+            spans.append(float(timing[1] - timing[0]) / 1e6)
+        return sum(spans) / len(spans)
+
     scatter_rows = []
     lo = 0
     for l in range(Q):
         d_l = bd8.block_dims[l]
         idx_l, val_l = bd8.block(l)
-        index = bd8.scatter_index(l)
+        index = scatter_mod.scatter_index(idx_l, val_l, d_l)
         want = local_scatter(bd8_cpu.indices[l], bd8_cpu.values[l], coeffs_cpu, d_l)
         got = z_first[lo:lo + d_l].cpu()
         lo += d_l
@@ -405,7 +446,8 @@ def run() -> dict:
         chain = int(torch.max(index.starts[1:] - index.starts[:-1]))
         flat_idx = idx_l.reshape(-1)
         flat_val = (val_l * coeffs_first[:, None]).reshape(-1)
-        b_ms, b_by = bound_ms(8 * terms + 4 * n + 8 * d_l + 4 * int(index.heavy.numel()),
+        # perm and the values once a term, coeffs, starts (int64) and z.
+        b_ms, b_by = bound_ms(8 * terms + 4 * n + 12 * d_l + 4 * int(index.heavy.numel()),
                               2.0 * terms)
         row = {"phase": "kernel_check", "kernel": "block_scatter", "block": l, "d_block": d_l,
                "nnz_l": int(idx_l.shape[1]), "terms": terms,
@@ -423,19 +465,57 @@ def run() -> dict:
                    val_l, coeffs_first, index), 20),
                "bound_ms": b_ms, "bound_by": b_by,
                "chain_bound_ms": chain * FADD_CYCLES / sm_clock_hz * 1e3}
+        if l == 0:
+            row["chain_ms_alone"] = chain_ms(val_l, index)
         emit(row)
         require(bitwise and repeat, f"block_scatter block {l}: {row}")
         scatter_rows.append(row)
-    emit({"phase": "scatter_snapshot", "blocks": Q,
-          "kernel_ms": sum(r["kernel_ms"] for r in scatter_rows),
-          "index_add_ms": sum(r["library_ms"] for r in scatter_rows),
-          "plain_ms": sum(r["plain_ms"] for r in scatter_rows),
-          "chain_bound_ms": sum(r["chain_bound_ms"] for r in scatter_rows),
-          "bound_ms": sum(r["bound_ms"] for r in scatter_rows),
-          "sm_clock_max_mhz": sm_clock_hz / 1e6, "fadd_cycles": FADD_CYCLES,
-          "note": "one snapshot = the 8 blocks' launches in turn; the chain bound is each "
-                  "block's longest id run of dependent adds"})
-    del z_first, s_first
+    # One snapshot: the single launch, timed itself, beside the 8 index_add_
+    # calls it replaces (one call each, in turn) and the plain version.
+    snap_again = scatter_mod.block_scatter(bd8.values, coeffs_first, snap_index)
+    snap_repeat = bool(torch.equal(snap_again, z_first))
+    flat_pairs = [(bd8.indices[l].reshape(-1), (bd8.values[l] * coeffs_first[:, None]).reshape(-1),
+                   bd8.block_dims[l]) for l in range(Q)]
+
+    def index_adds():
+        for flat_i, flat_v, d_l in flat_pairs:
+            torch.zeros(d_l, device=dev).index_add_(0, flat_i, flat_v)
+
+    def plain_snapshot():
+        return torch.cat([scatter_mod.block_scatter_plain(*bd8.block(l), coeffs_first,
+                                                          bd8.block_dims[l]) for l in range(Q)])
+
+    snap_terms = int(snap_index.perm.numel())
+    b_ms, b_by = bound_ms(8 * snap_terms + 4 * n + 12 * data.dim + 4 * int(
+        snap_index.heavy.numel()), 2.0 * snap_terms)
+    snapshot = {
+        "phase": "scatter_snapshot", "blocks": Q, "launches_per_snapshot": 1,
+        "terms": snap_terms, "heavy_ids": int(snap_index.heavy.numel()),
+        "bitwise_repeat": snap_repeat, "l2": "cold",
+        "kernel_ms": device_ms(torch, lambda: scatter_mod.block_scatter(
+            bd8.values, coeffs_first, snap_index), 5, flush),
+        "index_add_ms": device_ms(torch, index_adds, 5, flush),
+        "index_add_ms_sum_of_blocks": sum(r["library_ms"] for r in scatter_rows),
+        "plain_ms": device_ms(torch, plain_snapshot, 5, flush),
+        "host_ms": host_ms(torch, lambda: scatter_mod.block_scatter(
+            bd8.values, coeffs_first, snap_index), 20),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "chain_bound_ms": max(r["chain_bound_ms"] for r in scatter_rows),
+        "chain_bound_ms_sum_of_blocks": sum(r["chain_bound_ms"] for r in scatter_rows),
+        "block0_chain_ms_in_launch": chain_ms(bd8.values, snap_index),
+        "block0_chain_ms_alone": scatter_rows[0]["chain_ms_alone"],
+        "block0_launch_ms_alone": scatter_rows[0]["kernel_ms"],
+        "heavy_min": snap_index.heavy_min,
+        "sm_clock_max_mhz": sm_clock_hz / 1e6, "fadd_cycles": FADD_CYCLES,
+        "note": "one snapshot = one launch over the 8 blocks; the chain bound is the longest "
+                "id run of dependent adds over all blocks; a block's chain time is read from "
+                "%globaltimer in its heavy fold"}
+    emit(snapshot)
+    require(snap_repeat, "block_scatter: a repeat of the snapshot launch differs")
+    require(snapshot["kernel_ms"] < snapshot["index_add_ms"],
+            f"one snapshot launch ({snapshot['kernel_ms']} ms) is not faster than the 8 "
+            f"index_add_ calls ({snapshot['index_add_ms']} ms)")
+    del z_first, s_first, snap_again, flat_pairs
 
     prox_rows = {}
     eta = float(np.float32(cfg_preset.eta))
@@ -446,15 +526,24 @@ def run() -> dict:
         "none": (0.0, 0.0, 0.0),
     }
     z0 = torch.from_numpy(rng.normal(0.0, 1e-3, size=d0).astype(np.float32)).to(dev)
-    for u in (1, 8):
-        idx, val = idx0[sampled[:u]], val0[sampled[:u]]
-        coef = torch.from_numpy(rng.normal(0.0, 0.5, size=u).astype(np.float32)).to(dev)
+    # u = 64 (10,304 entries at block 0, past one staged window of the
+    # touched pass) from a generator of its own, so the u = 1 and 8 draws
+    # stay as they were.
+    rng64 = np.random.default_rng(SEED + 4)
+    sampled64 = torch.from_numpy(rng64.integers(0, n, size=64).astype(np.int64)).to(dev)
+    coef64 = torch.from_numpy(rng64.normal(0.0, 0.5, size=64).astype(np.float32)).to(dev)
+    for u in (1, 8, 64):
+        idx = idx0[sampled64] if u == 64 else idx0[sampled[:u]]
+        val = val0[sampled64] if u == 64 else val0[sampled[:u]]
+        coef = coef64 if u == 64 else torch.from_numpy(
+            rng.normal(0.0, 0.5, size=u).astype(np.float32)).to(dev)
         g_abs = torch.zeros(d0, device=dev).index_add_(
             0, idx.reshape(-1).long(), torch.abs(val * coef[:, None]).reshape(-1))
         for reg_name, (lam, lam1, lam2) in settings.items():
             args = (w0, idx, val, coef, z0, eta, lam, lam1, lam2)
             got = prox_mod.prox_update(*args)
             want = prox_mod.prox_update_plain(*args)
+            cpu_bits = bitwise_vs_cpu(got, prox_mod.prox_update_plain(*cpu_args(args)))
             err = torch.abs(got - want)
             tol = LAZY_ATOL + LAZY_RTOL * (torch.abs(w0) + torch.abs(want) + eta * (
                 g_abs + torch.abs(z0) + lam * torch.abs(w0) + lam1))
@@ -462,6 +551,7 @@ def run() -> dict:
             torch.cuda.synchronize()
             require(ok, f"prox_update u={u} {reg_name}: max error {float(err.max())}, "
                         f"{float(torch.max(err / tol))} of its tolerance")
+            require(cpu_bits, f"prox_update u={u} {reg_name}: not bitwise the CPU plain version")
             entries = idx.numel()
             flops = (5.0 + (4.0 if lam1 or lam2 else 0.0) + (1.0 if lam2 else 0.0)) * d0 \
                 + 2.0 * entries
@@ -472,6 +562,7 @@ def run() -> dict:
                 "max_abs_err": float(err.max()),
                 "max_err_over_tol": float(torch.max(err / tol)),
                 "bitwise": bool(torch.equal(got, want)),
+                "bitwise_vs_cpu_plain": cpu_bits,
                 "n_differ": int(torch.count_nonzero(got != want)),
                 # index_add_ adds repeated ids with atomics, in an order that
                 # can change from run to run; the kernel adds in flat order.
@@ -518,9 +609,10 @@ def run() -> dict:
           "last_equals_stamps": True})
     lazy_rows = {}
 
-    def lazy_check(kernel, u_ck, reg_name, case, got, want, last_ok, tol, w_in, time_it):
+    def lazy_check(kernel, u_ck, reg_name, case, got, want, last_ok, tol, w_in, time_it,
+                   cpu_bits=None):
         err = torch.abs(got - want)
-        ok = bool(torch.all(err <= tol))
+        ok = bool(torch.all(err <= tol)) and cpu_bits is not False
         row = {"phase": "kernel_check", "kernel": kernel, "u": u_ck, "reg": reg_name,
                "case": case, "d_block": d0, "nnz_l": idx0.shape[1],
                "max_abs_err": float(err.max()),
@@ -529,6 +621,8 @@ def run() -> dict:
                "n_differ": int(torch.count_nonzero(got != want)),
                "first_differ": first_difference(torch, got, want, w_in, z_real),
                "last_exact": last_ok}
+        if cpu_bits is not None:
+            row["bitwise_vs_cpu_plain"] = cpu_bits
         if time_it is not None:
             row.update(time_it())
         emit(row)
@@ -546,10 +640,11 @@ def run() -> dict:
         k = torch.clamp_min(min(stop, m) - last, 0)
         return k + ((m - last) > k).to(k.dtype)
 
-    for u_ck in (1, 8):
-        ids = ck_ids[m_ck, :u_ck]
+    for u_ck in (1, 8, 64):
+        ids = sampled64 if u_ck == 64 else ck_ids[m_ck, :u_ck]
         idx, val = idx0[ids], val0[ids]
-        coef = torch.from_numpy(rng.normal(0.0, 0.5, size=u_ck).astype(np.float32)).to(dev)
+        coef = coef64 if u_ck == 64 else torch.from_numpy(
+            rng.normal(0.0, 0.5, size=u_ck).astype(np.float32)).to(dev)
         corr = lazy_mod.step_corrections(bd8.nnz_col_block(0), n, u_ck)
         flat = idx.reshape(-1).long()
         distinct = torch.unique(flat)
@@ -560,26 +655,28 @@ def run() -> dict:
                 timed = reg_name == reg.name and case == "unmasked"
                 # catch-up: unmasked eta; "masked" = an Option II tail (stop < m).
                 stop = m_ck if case == "unmasked" else 3 * m_ck // 4
-                a = (w_ck.clone(), last_ck.clone())
-                b = (w_ck.clone(), last_ck.clone())
-                lazy_mod.lazy_catchup(*a, z_real, idx, eta, m_ck, stop, lam, lam1, lam2)
-                lazy_mod.lazy_catchup_plain(*b, z_real, idx, eta, m_ck, stop, lam, lam1, lam2)
-                k = replay_steps(last_ck, m_ck, stop)
-                tol = LAZY_RTOL * (k + 1) * (torch.abs(w_ck) + torch.abs(b[0]) + eta * torch.abs(z_real))
-                steps = float(k[distinct].sum())
+                if u_ck <= 8:  # u = 64 holds the touched pass only
+                    a = (w_ck.clone(), last_ck.clone())
+                    b = (w_ck.clone(), last_ck.clone())
+                    lazy_mod.lazy_catchup(*a, z_real, idx, eta, m_ck, stop, lam, lam1, lam2)
+                    lazy_mod.lazy_catchup_plain(*b, z_real, idx, eta, m_ck, stop, lam, lam1, lam2)
+                    k = replay_steps(last_ck, m_ck, stop)
+                    tol = LAZY_RTOL * (k + 1) * (torch.abs(w_ck) + torch.abs(b[0])
+                                                 + eta * torch.abs(z_real))
+                    steps = float(k[distinct].sum())
 
-                def restore(a=a):
-                    a[0].copy_(w_ck)
-                    a[1].copy_(last_ck)
+                    def restore(a=a):
+                        a[0].copy_(w_ck)
+                        a[1].copy_(last_ck)
 
-                lazy_check("lazy_catchup", u_ck, reg_name, case, a[0], b[0],
-                           bool(torch.equal(a[1], b[1])), tol, w_ck,
-                           (lambda: timings(
-                               lambda: lazy_mod.lazy_catchup(*a, z_real, idx, eta, m_ck, stop, lam, lam1, lam2),
-                               lambda: lazy_mod.lazy_catchup_plain(*a, z_real, idx, eta, m_ck, stop, lam, lam1, lam2),
-                               restore, 3, entries * 4 + distinct.numel() * 20,
-                               steps * step_flops(lam1, lam2)) | {"replayed_steps": steps})
-                           if timed else None)
+                    lazy_check("lazy_catchup", u_ck, reg_name, case, a[0], b[0],
+                               bool(torch.equal(a[1], b[1])), tol, w_ck,
+                               (lambda: timings(
+                                   lambda: lazy_mod.lazy_catchup(*a, z_real, idx, eta, m_ck, stop, lam, lam1, lam2),
+                                   lambda: lazy_mod.lazy_catchup_plain(*a, z_real, idx, eta, m_ck, stop, lam, lam1, lam2),
+                                   restore, 3, entries * 4 + distinct.numel() * 20,
+                                   steps * step_flops(lam1, lam2)) | {"replayed_steps": steps})
+                               if timed else None)
                 # touch and proba: masked = eta * mask = 0.
                 eta_m = eta if case == "unmasked" else 0.0
                 for kernel, c in (("lazy_touch_update", None), ("lazy_proba_update", corr)):
@@ -589,6 +686,8 @@ def run() -> dict:
                     pfn = getattr(lazy_mod, kernel + "_plain")
                     kfn(a, idx, val, coef, z_real, *extra, eta_m, lam, lam1, lam2)
                     pfn(b, idx, val, coef, z_real, *extra, eta_m, lam, lam1, lam2)
+                    cpu_bits = bitwise_vs_cpu(a, pfn(*cpu_args(
+                        (w_ck, idx, val, coef, z_real, *extra, eta_m, lam, lam1, lam2))))
                     cc = torch.ones_like(w_ck) if c is None else c
                     tol = LAZY_ATOL + LAZY_RTOL * (
                         torch.abs(w_ck) + torch.abs(b) + eta_m * (
@@ -604,7 +703,7 @@ def run() -> dict:
                                    lambda: kfn(a, idx, val, coef, z_real, *extra, eta_m, lam, lam1, lam2),
                                    lambda: pfn(a, idx, val, coef, z_real, *extra, eta_m, lam, lam1, lam2),
                                    restore, 50, nbytes, flops))
-                               if timed else None)
+                               if timed else None, cpu_bits)
                 if u_ck == 1:
                     # flush: the whole block; "masked" = an Option II tail.
                     a, b = w_ck.clone(), w_ck.clone()
@@ -625,6 +724,54 @@ def run() -> dict:
                                 | {"replayed_steps": steps})
                                if timed else None)
 
+    # 3c. The lazy touched pass on the widest block a preset gives,
+    # kdd2010's d at q = 1 (29,890,095 features, 176x news20's block 0):
+    # its grid is sized to the entries, so a step should cost what it
+    # costs on block 0.  Rows of news20's width and shape (80 copies of one
+    # id a row, trailing padding), their ids spread over the whole block;
+    # bitwise against the CPU plain version, timed beside block 0's row.
+    rng_wide = np.random.default_rng(SEED + 5)
+    d_wide = KDD2010_D
+    w_wide = torch.from_numpy(rng_wide.normal(0.0, 0.1, size=d_wide).astype(np.float32)).to(dev)
+    z_wide = torch.from_numpy(rng_wide.normal(0.0, 1e-3, size=d_wide).astype(np.float32)).to(dev)
+    corr_wide = torch.from_numpy(rng_wide.uniform(1.0, 20.0, size=d_wide).astype(np.float32)).to(dev)
+    width = idx0.shape[1]
+    for u_w in (8, 64):
+        idx_np = rng_wide.integers(0, d_wide, size=(u_w, width)).astype(np.int32)
+        val_np = rng_wide.normal(size=(u_w, width)).astype(np.float32)
+        idx_np[:, 5:85] = int(rng_wide.integers(0, d_wide))
+        idx_np[:, width - 20:], val_np[:, width - 20:] = 0, 0.0
+        idx_w, val_w = torch.from_numpy(idx_np).to(dev), torch.from_numpy(val_np).to(dev)
+        coef_w = torch.from_numpy(rng_wide.normal(0.0, 0.5, size=u_w).astype(np.float32)).to(dev)
+        distinct = int(torch.unique(idx_w).numel())
+        lam, lam1, lam2 = settings[reg.name]
+        for kernel, c in (("lazy_touch_update", None), ("lazy_proba_update", corr_wide)):
+            extra = () if c is None else (c,)
+            kfn = getattr(lazy_mod, kernel)
+            pfn = getattr(lazy_mod, kernel + "_plain")
+            a = w_wide.clone()
+            kfn(a, idx_w, val_w, coef_w, z_wide, *extra, eta, lam, lam1, lam2)
+            cpu_bits = bitwise_vs_cpu(a, pfn(*cpu_args(
+                (w_wide, idx_w, val_w, coef_w, z_wide, *extra, eta, lam, lam1, lam2))))
+
+            def restore(a=a):
+                a.copy_(w_wide)
+
+            b_ms, b_by = bound_ms(
+                idx_w.numel() * 8 + u_w * 4 + distinct * (12 if c is None else 16),
+                2.0 * idx_w.numel() + distinct * step_flops(lam1, lam2, c is not None))
+            row = {"phase": "kernel_check", "kernel": kernel, "u": u_w, "reg": reg.name,
+                   "case": "kdd2010 width", "d_block": d_wide, "nnz_l": width,
+                   "grid_blocks": -(-idx_w.numel() // 256), "distinct_ids": distinct,
+                   "bitwise_vs_cpu_plain": cpu_bits, "l2": "warm",
+                   "kernel_ms": device_ms(torch, lambda: kfn(
+                       a, idx_w, val_w, coef_w, z_wide, *extra, eta, lam, lam1, lam2), 200, restore),
+                   "block0_kernel_ms": lazy_rows[(kernel, u_w, reg.name, "unmasked")]["kernel_ms"],
+                   "bound_ms": b_ms, "bound_by": b_by}
+            emit(row)
+            require(cpu_bits, f"{kernel} at kdd2010 width u={u_w}: {row}")
+    del w_wide, z_wide, corr_wide
+
     # 4. The main path: run_fdsvrg at q = 8 through both kernels.
     cfg = SVRGConfig(eta=cfg_preset.eta, inner_steps=INNER_STEPS, outer_iters=OUTERS,
                      batch_size=u, seed=SEED)
@@ -641,7 +788,7 @@ def run() -> dict:
     per_outer = 2 * Q * n + INNER_STEPS * 2 * Q * u
     expected_counts = expected_launches(
         ops, sparse_margin=Q * (OUTERS + 1) + Q * INNER_STEPS * OUTERS,
-        block_scatter=Q * (OUTERS + 1), prox_update=Q * INNER_STEPS * OUTERS)
+        block_scatter=OUTERS + 1, prox_update=Q * INNER_STEPS * OUTERS)
     objs = [h.objective for h in res.history]
     emit({"phase": "main_path", "entry": "run_fdsvrg", "config": cfg_preset.name,
           "d": data.dim, "N": n, "q": Q, "u": u, "eta": cfg.eta, "reg": reg.name,
@@ -748,7 +895,7 @@ def run() -> dict:
     lazy_counts = ops.launch_counts()
     lazy_expected = expected_launches(
         ops, sparse_margin=Q * (OUTERS + 1) + Q * INNER_STEPS * OUTERS,
-        block_scatter=Q * (OUTERS + 1), lazy_catchup=Q * INNER_STEPS * OUTERS,
+        block_scatter=OUTERS + 1, lazy_catchup=Q * INNER_STEPS * OUTERS,
         lazy_touch_update=Q * INNER_STEPS * OUTERS,
         lazy_flush=Q * OUTERS)
     lazy_objs = [h.objective for h in lazy_res.history]
@@ -814,7 +961,7 @@ def run() -> dict:
     proba_wall = time.perf_counter() - t0
     proba_counts = ops.launch_counts()
     proba_expected = expected_launches(ops, sparse_margin=Q * 2 + Q * INNER_STEPS,
-                                       block_scatter=Q * 2, lazy_proba_update=Q * INNER_STEPS)
+                                       block_scatter=2, lazy_proba_update=Q * INNER_STEPS)
     dense_proba_eta = run_fdsvrg(None, part8, loss, reg, proba_cfg, block_data=bd8)
     proba_obj = proba_res.history[0].objective
     emit({"phase": "lazy_proba_path", "entry": "run_fdsvrg(lazy_updates='proba')",
@@ -1083,11 +1230,16 @@ def run() -> dict:
                         tolerance="bitwise")
     del vecs
 
-    for u_ck in (1, 8):
-        idx, val = idx0[sampled[:u_ck]], val0[sampled[:u_ck]]
-        coef = torch.from_numpy(rng.normal(0.0, 0.5, size=u_ck).astype(np.float32)).to(dev)
+    for u_ck in (1, 8, 64):
+        if u_ck == 64:
+            idx, val, coef = idx0[sampled64], val0[sampled64], coef64
+        else:
+            idx, val = idx0[sampled[:u_ck]], val0[sampled[:u_ck]]
+            coef = torch.from_numpy(rng.normal(0.0, 0.5, size=u_ck).astype(np.float32)).to(dev)
         g_abs = torch.zeros(d0, device=dev).index_add_(
             0, idx.reshape(-1).long(), torch.abs(val * coef[:, None]).reshape(-1))
+        # lam = 1e-4 is l2's smooth strength, lam = 0 that of l1, elastic_net
+        # and none (the kernel has no prox stages).
         for lam_c in (1e-4, 0.0):
             for case, eta_c in (("unmasked", eta), ("masked", 0.0)):
                 args = (w0, idx, val, coef, z0, eta_c, lam_c)
@@ -1095,6 +1247,9 @@ def run() -> dict:
                 same_prox = bool(torch.equal(got, prox_mod.prox_update(*args, 0.0, 0.0)))
                 require(same_prox, f"fused_update u={u_ck} lam={lam_c} {case}: != prox_update")
                 want = fused_mod.fused_update_plain(*args)
+                cpu_bits = bitwise_vs_cpu(got, fused_mod.fused_update_plain(*cpu_args(args)))
+                require(cpu_bits, f"fused_update u={u_ck} lam={lam_c} {case}: not bitwise "
+                                  f"the CPU plain version")
                 entries = idx.numel()
                 dense_check("fused_update", f"block 0, u = {u_ck}, lam = {lam_c:g}, {case}", got,
                             want, LAZY_ATOL + LAZY_RTOL * (
@@ -1104,6 +1259,7 @@ def run() -> dict:
                             lambda: fused_mod.fused_update_plain(*args), None, 200,
                             12 * d0 + 8 * entries + 4 * u_ck, 5.0 * d0 + 2.0 * entries,
                             equals_prox_update_kernel=same_prox,
+                            bitwise_vs_cpu_plain=cpu_bits,
                             n_differ=int(torch.count_nonzero(got != want)),
                             tolerance=f"bitwise vs prox_update(lam1 = lam2 = 0); vs plain "
                                       f"|d| <= {LAZY_ATOL:g} + {LAZY_RTOL:g} * (|w| + |plain| "
@@ -1333,14 +1489,15 @@ def run() -> dict:
          "replaces": "src/repro/data/block_csr.py:271",
          "tpu_kernel": False,
          "note": "the port's own kernel: the reference's snapshot scatter is a plain "
-                 ".at[].add (no pallas_call); library_ms is index_add_",
-         "launches": counts["block_scatter"], "max_abs_err": scatter_rows[0]["max_abs_err"],
-         "ms": scatter_rows[0]["kernel_ms"], "host_ms": scatter_rows[0]["host_ms"],
-         "plain_ms": scatter_rows[0]["plain_ms"], "bound_ms": scatter_rows[0]["bound_ms"],
-         "bound_by": scatter_rows[0]["bound_by"],
-         "chain_bound_ms": scatter_rows[0]["chain_bound_ms"],
-         "library_ms": scatter_rows[0]["library_ms"],
-         "shape": f"snapshot block 0: d_l={d0}, R={n}, nnz_l={scatter_rows[0]['nnz_l']}"},
+                 ".at[].add (no pallas_call); one launch for all 8 blocks; library_ms is "
+                 "the 8 index_add_ calls",
+         "launches": counts["block_scatter"],
+         "max_abs_err": max(r["max_abs_err"] for r in scatter_rows),
+         "ms": snapshot["kernel_ms"], "host_ms": snapshot["host_ms"],
+         "plain_ms": snapshot["plain_ms"], "bound_ms": snapshot["bound_ms"],
+         "bound_by": snapshot["bound_by"], "chain_bound_ms": snapshot["chain_bound_ms"],
+         "library_ms": snapshot["index_add_ms"],
+         "shape": f"one snapshot: 8 blocks, d={data.dim}, R={n}, {snap_terms} terms"},
         {"name": "prox_update", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/prox_update.cu",
          "replaces": "src/repro/kernels/prox_update.py:84",

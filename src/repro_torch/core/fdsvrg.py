@@ -117,12 +117,16 @@ def _block_margins(idx, val, w_block, use_kernels: bool) -> torch.Tensor:
     return local_margins(idx, val, w_block)
 
 
-def _block_scatter(bd: BlockCSR, l: int, coeffs, use_kernels: bool) -> torch.Tensor:
-    """Block ``l``'s scatter of the full gradient (Alg 1 line 5)."""
-    idx, val = bd.block(l)
+def _snapshot_scatter(bd: BlockCSR, coeffs, use_kernels: bool) -> torch.Tensor:
+    """Every block's scatter of the full gradient (Alg 1 line 5), the q
+    blocks' z concatenated: one kernel launch with ``use_kernels``, else
+    each block's ``local_scatter``."""
     if use_kernels:
-        return ops.block_scatter(idx, val, coeffs, bd.block_dims[l], bd.scatter_index(l))
-    return local_scatter(idx, val, coeffs, bd.block_dims[l])
+        return ops.snapshot_scatter(bd, coeffs)
+    z_blocks = [
+        local_scatter(*bd.block(l), coeffs, bd.block_dims[l]) for l in range(bd.num_blocks)
+    ]
+    return torch.cat(z_blocks) if len(z_blocks) > 1 else z_blocks[0]
 
 
 def _full_grad_blocks(
@@ -144,11 +148,7 @@ def _full_grad_blocks(
     ]
     s0 = tree_order_sum(parts)
     coeffs = _divide(loss.dvalue(s0, bd.labels), bd.num_instances)
-    z_blocks = [
-        _block_scatter(bd, l, coeffs, use_kernels) for l in range(bd.num_blocks)
-    ]
-    z_data = torch.cat(z_blocks) if len(z_blocks) > 1 else z_blocks[0]
-    return z_data, s0
+    return _snapshot_scatter(bd, coeffs, use_kernels), s0
 
 
 def _default_fd_abort(n: int, nnz: int, q: int):
@@ -676,16 +676,15 @@ def fdsvrg_worker_simulation(
 
     def snapshot(w):
         # Lines 3-4: per-worker partial margins, canonical tree-order sum;
-        # line 5: purely local scatter of the full-gradient block.
+        # line 5: each worker's purely local scatter of its full-gradient
+        # block (on the card, one launch covers all q workers' blocks).
         blocks = split(w)
         partials = [
             _sim_margins(*block_data.block(l), blocks[l], use_kernels) for l in range(q)
         ]
         s0 = tree_order_sum(partials)
         coeffs0 = _divide(loss.dvalue(s0, labels), n)
-        z_blocks = [_block_scatter(block_data, l, coeffs0, use_kernels) for l in range(q)]
-        z_data = torch.cat(z_blocks) if q > 1 else z_blocks[0]
-        return z_data, s0
+        return _snapshot_scatter(block_data, coeffs0, use_kernels), s0
 
     lams = _lazy_lams(reg)
     exact = lazy_updates == "exact"

@@ -25,7 +25,7 @@ import torch
 
 from repro_torch.core.partition import FeaturePartition
 from repro_torch.data.sparse import PaddedCSR
-from repro_torch.kernels.block_scatter import ScatterIndex, scatter_index
+from repro_torch.kernels.block_scatter import ScatterIndex, snapshot_index
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,9 +43,10 @@ class BlockCSR:
     # The source's global padded-row width, which the cost model charges
     # against (None: fall back to the sum of per-block budgets).
     nnz_max: int | None = None
-    # scatter_index's cache, keyed by (block, device); shared by the
-    # copies that .to() and dataclasses.replace make, which keep the rows.
-    _scatter_index: dict = dataclasses.field(
+    # snapshot_index's cache, keyed by device; shared by the copies that
+    # .to() and dataclasses.replace make, which keep the rows (an index
+    # holds no pointers).
+    _snapshot_index: dict = dataclasses.field(
         default_factory=dict, compare=False, repr=False
     )
 
@@ -89,15 +90,16 @@ class BlockCSR:
         )
         return torch.from_numpy(counts).to(self.device)
 
-    def scatter_index(self, l: int) -> ScatterIndex:
-        """Block ``l``'s flat-order index for the snapshot scatter kernel,
-        built at first use on the rows' device and kept."""
-        key = (l, str(self.indices[l].device))
-        if key not in self._scatter_index:
-            self._scatter_index[key] = scatter_index(
-                self.indices[l], self.values[l], int(self.block_dims[l])
+    def snapshot_index(self) -> ScatterIndex:
+        """The flat-order index of all q blocks for the snapshot scatter
+        kernel (one launch a snapshot), built at first use on the rows'
+        device and kept."""
+        key = str(self.values[0].device)
+        if key not in self._snapshot_index:
+            self._snapshot_index[key] = snapshot_index(
+                self.indices, self.values, self.block_dims
             )
-        return self._scatter_index[key]
+        return self._snapshot_index[key]
 
     def to(self, device: torch.device | str) -> "BlockCSR":
         """The same layout with every tensor on ``device``."""

@@ -33,9 +33,10 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = (
     ("repro_sparse_margin", _I, (_P, _P, _P, _P, _I, _I, _P)),
-    # The snapshot scatter: values, coeffs, perm, starts, heavy, z; nnz_l,
-    # dim, heavy ids, HEAVY_MIN; the stream.
-    ("repro_block_scatter", _I, (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
+    # The snapshot scatter: the q values pointers and nnz_l (host arrays),
+    # bounds, q, coeffs, perm, starts, heavy, heavy ids, the index's
+    # heavy_min, z, dim, timing (or NULL); the stream.
+    ("repro_block_scatter", _I, (_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _I, _P, _P)),
     (
         "repro_prox_update",
         _I,

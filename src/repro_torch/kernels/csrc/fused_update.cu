@@ -12,23 +12,23 @@
 // lam1 = lam2 = 0 bit for bit.  eta (the Option II mask, eta = 0 on a
 // masked step) and lam are runtime floats.
 //
-// What bounds it on an H100: bytes, as prox_update.  The dense pass reads
+// What bounds it on an H100: bytes, as prox_update.  The dense step reads
 // w and z and writes out once (12 B per feature: 2.0 MB for d_block =
 // 169,399, news20 block 0 at q = 8, 0.0006 ms at 3.35 TB/s); the scatter
-// touches u * nnz_l <= 8 * 161 entries.  In practice the two launches'
-// latency bounds it.
+// touches u * nnz_l <= 8 * 161 entries.  In practice the latency of one
+// launch and its few dependent rounds bounds it.
 //
-// Design: two launches on the caller's stream, no scratch vector
-// (launch_dense_then_touched of touched.cuh, as prox_update.cu):
-//   1. the dense pass — one thread per feature, the update with g = 0.0;
-//   2. the touched pass — one block rewrites out[j] at each touched
-//      feature j with g summed in increasing flat position from 0.0 (the
-//      reference's .at[].add order, no float atomics).
+// Design: one launch on the caller's stream, no scratch vector
+// (launch_range of touched.cuh, as prox_update.cu): block b owns
+// 2,048 features, keeps the sampled entries in its range in flat order,
+// sums each touched id's contributions in increasing flat position from
+// 0.0 (the reference's .at[].add order, no float atomics), and each
+// feature's thread writes out[j] once, with g = 0.0 or with that sum.
 // Every float op is an __f*_rn intrinsic, never contracted into an FMA.
 //
 // Preconditions (checked by the Python wrapper, kernels/fused_update.py):
 // float32 w/z/out/val/coef, int32 idx in [0, d), all contiguous, on the
-// current device.  Returns cudaGetLastError() after the launches.
+// current device.  Returns cudaGetLastError() after the launch.
 
 #include <cuda_runtime.h>
 
@@ -42,8 +42,12 @@ struct FusedUpdate {
   const float* z;
   float* out;
   float eta, lam;
-  __device__ __forceinline__ void operator()(int j, float g) const {
-    out[j] = prox_step(w[j], g, z[j], eta, lam, 0.0f, 0.0f);
+  struct In {
+    float w, z;
+  };
+  __device__ __forceinline__ In load(int j) const { return {w[j], z[j]}; }
+  __device__ __forceinline__ void store(int j, In in, float g) const {
+    out[j] = prox_step(in.w, g, in.z, eta, lam, 0.0f, 0.0f);
   }
 };
 
@@ -54,7 +58,7 @@ extern "C" int repro_fused_update(const float* w, const int* idx,
                                   const float* z, float* out, int d, int u,
                                   int nnz, float eta, float lam,
                                   void* stream) {
-  return launch_dense_then_touched(idx, val, coef, d, u, nnz,
-                                   FusedUpdate{w, z, out, eta, lam},
-                                   static_cast<cudaStream_t>(stream));
+  return launch_range(idx, val, coef, d, u, nnz,
+                            FusedUpdate{w, z, out, eta, lam},
+                            static_cast<cudaStream_t>(stream));
 }

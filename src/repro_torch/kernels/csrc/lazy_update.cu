@@ -11,7 +11,7 @@
 //                        then last[j] = m + 1.  Replaces
 //                        repro/kernels/lazy_update.py:125 (lazy_catchup).
 //   lazy_touch_update  — the dense prox step at the touched features only
-//                        (the touched pass of touched.cuh, writing w in
+//                        (launch_entries of touched.cuh, writing w in
 //                        place).  Replaces lazy_update.py:177.
 //   lazy_flush         — at epoch end, every feature replays its remaining
 //                        deferred steps up to total.  Replaces
@@ -42,7 +42,13 @@
 //     replay chain: a feature last touched early in the epoch replays
 //     ~m dependent steps.  One warp per entry, across blocks, so the
 //     chains run concurrently; lane 0 of the owner replays.
-//   touch / proba — launch latency (u * nnz_l entries, one block).
+//   touch / proba — launch latency: u * nnz_l entries, a few dependent
+//     rounds (load, hash, compact, fold, store).  The grid is sized to
+//     the entries, not to d_block: ceil(u * nnz_l / 256) blocks of
+//     touched.cuh's entries_kernel (1 at u = 1, 6 at u = 8, 41 at u = 64
+//     for news20 block 0 at q = 8), each owning the ids first met in its
+//     256 flat positions and reading every entry once, so a step costs
+//     the same at d_block = 169,399 as at kdd2010's 29.9M.
 //   flush — operations: sum_j k_j replayed steps over the whole block,
 //     one thread per feature (d_block = 169,399 for news20 block 0).
 //
@@ -112,10 +118,14 @@ struct ProbaUpdate {
   const float* z;
   const float* corr;
   float eta, lam, lam1, lam2;
-  __device__ __forceinline__ void operator()(int j, float g) const {
-    const float wl = w[j];
-    const float c = corr[j];
-    const float decay = __fmul_rn(c, __fadd_rn(z[j], __fmul_rn(lam, wl)));
+  struct In {
+    float w, z, c;
+  };
+  __device__ __forceinline__ In load(int j) const { return {w[j], z[j], corr[j]}; }
+  __device__ __forceinline__ void store(int j, In in, float g) const {
+    const float wl = in.w;
+    const float c = in.c;
+    const float decay = __fmul_rn(c, __fadd_rn(in.z, __fmul_rn(lam, wl)));
     float v = __fsub_rn(wl, __fmul_rn(eta, __fadd_rn(g, decay)));
     if (lam1 != 0.0f || lam2 != 0.0f) {
       const float s = static_cast<float>((0.0f < v) - (v < 0.0f));
@@ -151,7 +161,7 @@ extern "C" int repro_lazy_touch_update(float* w, const int* idx,
                                        const float* z, int u, int nnz,
                                        float eta, float lam, float lam1,
                                        float lam2, void* stream) {
-  return launch_touched(idx, val, coef, u, nnz,
+  return launch_entries(idx, val, coef, u, nnz,
                         ProxUpdate{w, z, w, eta, lam, lam1, lam2},
                         static_cast<cudaStream_t>(stream));
 }
@@ -173,7 +183,7 @@ extern "C" int repro_lazy_proba_update(float* w, const int* idx,
                                        const float* z, const float* corr,
                                        int u, int nnz, float eta, float lam,
                                        float lam1, float lam2, void* stream) {
-  return launch_touched(idx, val, coef, u, nnz,
+  return launch_entries(idx, val, coef, u, nnz,
                         ProbaUpdate{w, z, corr, eta, lam, lam1, lam2},
                         static_cast<cudaStream_t>(stream));
 }

@@ -47,20 +47,23 @@ def sparse_margins(
     return _margin.sparse_margin_plain(indices, values, w_block)
 
 
-def block_scatter(
-    indices: torch.Tensor,  # int32[N, nnz_l], block-LOCAL ids (BlockCSR rows)
-    values: torch.Tensor,  # float32[N, nnz_l]
+def snapshot_scatter(
+    block_data,  # BlockCSR: q blocks of rows on the coefficients' device
     coeffs: torch.Tensor,  # float32[N]
-    block_dim: int,
-    index: _scatter.ScatterIndex,  # BlockCSR.scatter_index(l) of these rows
-) -> torch.Tensor:  # float32[block_dim]
-    """sum_i coeffs_i * x_i as a dense block vector, each id's terms added
-    in flat order: the snapshot's scatter (Alg 1 line 5), deterministic
-    and bitwise equal to the CPU's ``index_add_``.  The CPU takes the
-    plain version and leaves ``index`` unread."""
-    if _route(values, "block_scatter"):
-        return _scatter.block_scatter(values, coeffs, index)
-    return _scatter.block_scatter_plain(indices, values, coeffs, block_dim)
+) -> torch.Tensor:  # float32[d], the q blocks' z concatenated
+    """Every block's scatter of the full gradient (Alg 1 line 5), each id's
+    terms added in flat order: on the card ONE launch for all q blocks
+    over ``block_data.snapshot_index()``; on the CPU each block's plain
+    version, concatenated."""
+    if _route(coeffs, "block_scatter"):
+        return _scatter.block_scatter(
+            block_data.values, coeffs, block_data.snapshot_index()
+        )
+    z_blocks = [
+        _scatter.block_scatter_plain(idx, val, coeffs, dim)
+        for idx, val, dim in zip(block_data.indices, block_data.values, block_data.block_dims)
+    ]
+    return torch.cat(z_blocks) if len(z_blocks) > 1 else z_blocks[0]
 
 
 def fused_block_update(
@@ -319,7 +322,6 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
-    "block_scatter",
     "decode_attention",
     "decode_attention_batched",
     "fused_block_prox_update",
@@ -332,6 +334,7 @@ __all__ = [
     "loss_and_grad",
     "margins_dense",
     "reset_launch_counts",
+    "snapshot_scatter",
     "sparse_margins",
     "step_corrections",
     "svrg_dense_update",

@@ -350,6 +350,63 @@ def test_prox_update_kernel_matches_plain_on_card(cuda_device, u, reg):
         assert bool(torch.all(torch.abs(got - want) <= 1e-7 + PROX_RTOL * torch.abs(want)))
 
 
+TOUCHED_KERNELS = {"prox_update": prox_mod, "fused_update": fused_mod,
+                   "lazy_touch_update": lazy_mod, "lazy_proba_update": lazy_mod}
+TOUCHED_RANGE = 2048  # features one block of the touched pass owns (csrc/touched.cuh)
+
+
+def _touched_case(u, seed, d, width=161):
+    """Rows as news20 block 0 gives them: 80 copies of a hot id a row,
+    ids at the first and last feature of the touched pass's block ranges,
+    ids repeated across rows (row 0's in the last row too: one owner,
+    terms in two blocks' positions of the lazy grid), and trailing padding
+    (id 0, value 0.0)."""
+    rng = np.random.default_rng(seed)
+    idx, val = _rows(rng, u, width, d, pad=20)
+    idx[:, 5:85] = 12_539
+    edges = [0, 1, TOUCHED_RANGE - 1, TOUCHED_RANGE, 2 * TOUCHED_RANGE - 1, d - 1]
+    idx[:, 85:85 + len(edges)] = edges
+    if u > 1:
+        idx[1:, 100:104] = idx[0, 100:104]
+        idx[-1, 110:130] = idx[0, 110:130]
+    w = (rng.normal(size=d) * 0.01).astype(np.float32)
+    z = (rng.normal(size=d) * 0.01).astype(np.float32)
+    coef = rng.normal(size=u).astype(np.float32)
+    corr = rng.uniform(1.0, 20.0, size=d).astype(np.float32)
+    return w, idx, val, coef, z, corr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", list(TOUCHED_KERNELS))
+@pytest.mark.parametrize("u", [1, 8, 64])
+@pytest.mark.parametrize("reg", list(REG_SETTINGS))
+@pytest.mark.parametrize("d", [20_000, 2_000_000])
+def test_touched_kernels_equal_cpu_plain_bitwise_on_card(cuda_device, kernel, u, reg, d):
+    """The four kernels of the touched pass equal their plain versions on
+    the CPU (whose index_add_ adds in flat order) bit for bit, twice; u = 64
+    gives 10,304 entries, past one staged window.  The lazy kernels' grid
+    is sized to the entries (256 flat positions a block), not to d; at d =
+    2,000,000 the ids spread over the whole block.  fused_update takes the
+    setting's smooth lam only."""
+    lam, lam1, lam2 = REG_SETTINGS[reg]
+    case = _touched_case(u, seed=u, d=d)
+    mod = TOUCHED_KERNELS[kernel]
+
+    def call(fn, dev):
+        w, idx, val, coef, z, corr = (torch.from_numpy(a.copy()).to(dev) for a in case)
+        if kernel == "fused_update":
+            return fn(w, idx, val, coef, z, 0.25, lam)
+        if kernel == "lazy_proba_update":
+            return fn(w, idx, val, coef, z, corr, 0.25, lam, lam1, lam2)
+        return fn(w, idx, val, coef, z, 0.25, lam, lam1, lam2)
+
+    want = call(getattr(mod, kernel + "_plain"), "cpu").numpy().view(np.int32)
+    for _ in range(2):
+        got = call(getattr(mod, kernel), cuda_device)
+        torch.cuda.synchronize()
+        assert np.array_equal(got.cpu().numpy().view(np.int32), want)
+
+
 if __name__ == "__main__":
     # Worst error over the CPU cases, as a fraction of the stated tolerance:
     #   PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_kernels.py
