@@ -7,13 +7,20 @@ Run from the root of a checkout, on a machine with a CUDA card:
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds each kernel against its plain PyTorch version at the shapes of the
-FD-SVRG main path (full-width news20, q = 8; the snapshot scatter, one
-launch for all 8 blocks, bit for bit against the CPU's ``index_add_`` in
-every block; the touched-pass kernels bit for bit against their plain
+FD-SVRG main path (full-width news20, q = 8; a step's and the snapshot's
+margins, one launch for all 8 blocks, bit for bit against 8 one-block
+launches plus ``tree_order_sum`` at u = 1, 8 and 64 and R = N; the
+snapshot scatter, one launch for all 8 blocks, bit for bit against the
+CPU's ``index_add_`` in every block; the step's exact-lazy catch-up, one
+launch for all 8 blocks, bit for bit against the CPU's plain version at
+u = 1, 8 and 64, and timed at m = N = 19,954 beside its chain bound; the
+touched-pass kernels bit for bit against their plain
 versions on the CPU at u = 1, 8 and 64, the lazy ones also on a block
 of kdd2010's width), drives that main
 path through ``run_fdsvrg(use_kernels=True)`` with exact meter and
-launch-count checks, holds two short kernel-path runs bitwise equal and
+launch-count checks (one margins launch a step and a snapshot, one
+catch-up launch a step; no torch gather of the sampled rows), holds two
+short kernel-path runs bitwise equal and
 one against the plain path, runs the serial path, and scores the trained
 ``w`` through the margin kernel.
 Then the lazy paths: ``run_fdsvrg(lazy_updates="exact")`` and
@@ -65,6 +72,10 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 # Cycles of one dependent float32 add: the snapshot scatter's chain bound.
 FADD_CYCLES = 4
+# Dependent float operations of one replayed step (g = 0) before the prox:
+# v = w - eta * ((0 + z) + lam * w) is fmul, fadd, fmul, fsub, each
+# FADD_CYCLES; the catch-up's chain bound counts these only (a prox adds more).
+REPLAY_CHAIN_OPS = 4
 
 # Main-path run: the fdsvrg-news20 preset at full width, depth cut to a
 # few steps (the paper's M is N = 19,954 inner steps per outer).
@@ -74,6 +85,7 @@ INNER_STEPS = 2000
 PLAIN_CHECK_STEPS = 500
 PROFILE_STEPS = 500
 LAZY_CHECK_STEPS = 500  # the lazy kernels are checked at the state these leave
+LAUNCH_COUNT_STEPS = 200  # steps of one epoch profiled for its launches per step
 LAZY_VS_DENSE_STEPS = 1000
 DENSE_STEPS = 200  # K inner steps of the dense-layout step and its BlockCSR twin
 KDD2010_N, KDD2010_D = 19_264_097, 29_890_095  # TABLE1_FULL["kdd2010"]: N and d
@@ -302,6 +314,7 @@ def run() -> dict:
     from repro_torch.core.partition import balanced
     from repro_torch.data import datasets
     from repro_torch.data.block_csr import BlockCSR, local_scatter
+    from repro_torch.dist.tree import tree_order_sum
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import block_scatter as scatter_mod
     from repro_torch.kernels import fd_matvec as matvec_mod
@@ -402,6 +415,108 @@ def run() -> dict:
         }
         emit(row)
         margin_rows[label] = row
+
+    # The margins over all 8 blocks in one launch, at a step's u sampled rows
+    # (ops.step_margins: u = 1, 8, 64) and at the snapshot's N rows
+    # (ops.snapshot_margins): s and the partials bitwise 8 one-block launches
+    # plus tree_order_sum, the step's gathered rows equal to the torch
+    # gathers, s within MARGIN_RTOL of the plain version.  Timed beside the
+    # path before (the 8 one-block launches with their 16 gathers and 7
+    # adds), the plain version, one CSR torch.mv over the rows' global ids
+    # (built outside the timed call) and the launch's floor, one launch over
+    # one row of one entry: two dependent global rounds and the fixed cost.
+    bounds8 = [0]
+    for d_l in bd8.block_dims:
+        bounds8.append(bounds8[-1] + d_l)
+    rng_m = np.random.default_rng(SEED + 6)
+    w_all = torch.from_numpy(rng_m.normal(0.0, 0.1, size=data.dim).astype(np.float32)).to(dev)
+    w_parts = [w_all[a:b] for a, b in zip(bounds8[:-1], bounds8[1:])]
+    ids64_m = torch.from_numpy(rng_m.integers(0, n, size=64).astype(np.int64)).to(dev)
+    one_idx, one_val = idx0[:1, :1].contiguous(), val0[:1, :1].contiguous()
+    margin_floor_ms = device_ms(torch, lambda: margin_mod.sparse_margin(one_idx, one_val, w0), 200)
+    multi_margin_rows = {}
+    for label, ids in (("step u=1", sampled[:1]), ("step u=8", sampled[:8]),
+                       ("step u=64", ids64_m), ("snapshot R=N", None)):
+        n_rows = n if ids is None else ids.numel()
+        rows_l = [(bd8.indices[l], bd8.values[l]) if ids is None else
+                  (bd8.indices[l][ids], bd8.values[l][ids]) for l in range(Q)]
+        singles = [margin_mod.sparse_margin(i, v, w_l) for (i, v), w_l in zip(rows_l, w_parts)]
+        want_s = tree_order_sum(singles)
+        buf = None if ids is None else ops.step_rows(bd8, n_rows)
+        if ids is None:
+            def fn():
+                return ops.snapshot_margins(bd8, w_all)
+        else:
+            def fn(ids=ids, buf=buf):
+                return ops.step_margins(bd8, ids, w_all, out=buf).s
+        ops.reset_launch_counts()
+        if ids is None:
+            got_s, got_rows, got_parts = ops.snapshot_margins(bd8, w_all), None, None
+        else:
+            got_s, got_rows, got_parts = ops.step_margins(bd8, ids, w_all, partials=True)
+        one_launch = ops.launch_counts()["sparse_margin"] == 1
+        again = fn()
+        bit_s = bool(torch.equal(got_s, want_s)) and bool(torch.equal(again, got_s))
+        bit_parts = got_parts is None or bool(torch.equal(got_parts, torch.stack(singles)))
+        rows_equal = got_rows is None or all(
+            bool(torch.equal(a, c)) and bool(torch.equal(b, e))
+            for (a, b), (c, e) in zip(got_rows, rows_l))
+        plain_s = margin_mod.margins_plain(bd8.indices, bd8.values, w_parts, ids)[0]
+        scale = sum(torch.sum(torch.abs(w_l[i] * v), -1) for (i, v), w_l in zip(rows_l, w_parts))
+        err = torch.abs(got_s - plain_s)
+        ratio = float(torch.max(err / torch.clamp_min(MARGIN_RTOL * scale, 1e-30)))
+        gidx = torch.cat([i.long() + b for (i, _), b in zip(rows_l, bounds8)], 1)
+        gval = torch.cat([v for _, v in rows_l], 1)
+        width = gidx.shape[1]
+        csr = torch.sparse_csr_tensor(
+            torch.arange(0, n_rows * width + 1, width, dtype=torch.int64, device=dev),
+            gidx.reshape(-1), gval.reshape(-1), size=(n_rows, data.dim))
+        require(bool(torch.all(torch.abs(torch.mv(csr, w_all) - plain_s) <= 1e-5 * scale + 1e-6)),
+                f"margins {label}: library yardstick disagrees")
+
+        def per_block(ids=ids):
+            if ids is None:
+                parts = [margin_mod.sparse_margin(i, v, w_l)
+                         for i, v, w_l in zip(bd8.indices, bd8.values, w_parts)]
+            else:
+                parts = [margin_mod.sparse_margin(bd8.indices[l][ids], bd8.values[l][ids],
+                                                  w_parts[l]) for l in range(Q)]
+            return tree_order_sum(parts)
+
+        entries = n_rows * width
+        distinct = int(torch.unique(gidx).numel())
+        # The rows' entries (id and value) read once, w at each distinct id,
+        # s written; a step also reads its ids and writes its gathered rows.
+        nbytes = entries * 8 + distinct * 4 + n_rows * 4 + (0 if ids is None else
+                                                           n_rows * 8 + entries * 8)
+        b_ms, b_by = bound_ms(nbytes, 2.0 * entries)
+        cold = flush if ids is None else None
+        iters = 50 if ids is None else 200
+        row = {"phase": "kernel_check", "kernel": "sparse_margin",
+               "entry": "ops.snapshot_margins" if ids is None else "ops.step_margins",
+               "shape": f"{label}, 8 blocks", "rows": n_rows, "blocks": Q,
+               "entries": entries, "launches_per_call": 1 if one_launch else None,
+               "bitwise_s_vs_8_launches_and_tree_sum": bit_s,
+               "bitwise_partials": bit_parts, "rows_equal_torch_gathers": rows_equal,
+               "max_abs_err": float(torch.max(err)), "max_err_over_tol": ratio,
+               "tolerance": f"s bitwise 8 one-block launches + tree_order_sum; vs plain "
+                            f"|d| <= {MARGIN_RTOL:g} * sum_l sum_k |w[idx]*val| per row",
+               "l2": "cold" if cold else "warm",
+               "kernel_ms": device_ms(torch, fn, iters, cold),
+               "per_block_ms": device_ms(torch, per_block, iters, cold),
+               "plain_ms": device_ms(torch, lambda ids=ids: margin_mod.margins_plain(
+                   bd8.indices, bd8.values, w_parts, ids)[0], iters, cold),
+               "library_ms": device_ms(torch, lambda csr=csr: torch.mv(csr, w_all), iters, cold),
+               "host_ms": host_ms(torch, fn, iters),
+               "per_block_host_ms": host_ms(torch, per_block, iters),
+               "one_block_host_ms": margin_rows["inner step R=u=1"]["host_ms"],
+               "bound_ms": b_ms, "bound_by": b_by, "floor_ms": margin_floor_ms,
+               "floor": "one launch over one row of one entry"}
+        emit(row)
+        require(one_launch and bit_s and bit_parts and rows_equal and ratio <= 1.0,
+                f"margins {label}: {row}")
+        multi_margin_rows[label] = row
+        del csr, gidx, gval, buf
 
     # The snapshot scatter at the main path's first snapshot (w = 0): one
     # launch for all 8 blocks, whose z, block by block, equals the CPU's
@@ -579,38 +694,54 @@ def run() -> dict:
             emit(row)
             prox_rows[(u, reg_name)] = row
 
-    # 3b. The lazy kernels vs plain on block 0, at the state an exact-lazy
-    # epoch of LAZY_CHECK_STEPS steps leaves: the catch-up kernel replays
-    # and stamps every sampled row in turn, and its `last` must equal the
-    # stamps reckoned from the samples (last[j] = 1 + the last step that
-    # touched j).  Then step m = LAZY_CHECK_STEPS with fresh rows.
+    # 3b. The lazy kernels vs plain, at the state an exact-lazy epoch of
+    # LAZY_CHECK_STEPS steps leaves: the step catch-up (one launch for all 8
+    # blocks) replays and stamps every sampled row in turn, and its `last`
+    # must equal the stamps reckoned from the samples (last[j] = 1 + the last
+    # step that touched j).  Block 0's part of that state (its w from w0, as
+    # the one-block replays left it before) feeds the one-block rows; then
+    # step m = LAZY_CHECK_STEPS with fresh rows.
     reg = cfg_preset.regularizer()
     u = cfg_preset.batch_size
-    z_real = _full_grad_blocks(bd8, torch.zeros(data.dim, device=dev), loss, True)[0][:d0]
+    z_all = _full_grad_blocks(bd8, torch.zeros(data.dim, device=dev), loss, True)[0]
+    z_real = z_all[:d0]
     m_ck = LAZY_CHECK_STEPS
     ck_ids = torch.from_numpy(
         draw_samples(np.random.default_rng(SEED + 1), n, m_ck + 1, 8).astype(np.int64)
     ).to(dev)
-    w_ck = w0.clone()
-    last_ck = torch.zeros(d0, dtype=torch.int32, device=dev)
+    rng_c = np.random.default_rng(SEED + 7)
+    w_state = torch.cat([w0, torch.from_numpy(
+        rng_c.normal(0.0, 0.1, size=data.dim - d0).astype(np.float32)).to(dev)])
+    last_state = torch.zeros(data.dim, dtype=torch.int32, device=dev)
     t0 = time.perf_counter()
     for m in range(m_ck):
-        lazy_mod.lazy_catchup(w_ck, last_ck, z_real, idx0[ck_ids[m, :1]], eta, m, m_ck,
-                              *settings["l2"])
+        ops.lazy_step_catchup(bd8, ck_ids[m, :1], w_state, last_state, z_all, eta, m, m_ck,
+                              lam=settings["l2"][0])
     torch.cuda.synchronize()
     epoch_s = time.perf_counter() - t0
-    stamps = torch.arange(1, m_ck + 1, device=dev, dtype=torch.int32).repeat_interleave(
-        idx0.shape[1])
-    want_last = torch.zeros(d0, dtype=torch.int32, device=dev).scatter_reduce_(
-        0, idx0[ck_ids[:m_ck, 0]].reshape(-1).long(), stamps, "amax")
-    require(torch.equal(last_ck, want_last), "lazy_catchup: last != the epoch's stamps")
-    emit({"phase": "lazy_check_state", "steps": m_ck, "catchup_loop_s": epoch_s,
-          "features_touched": int(torch.count_nonzero(last_ck)),
+
+    def global_ids(ids):
+        """[len(ids), 701]: the sampled rows' ids in all 8 blocks, global."""
+        return torch.cat([bd8.indices[l][ids].long() + bounds8[l] for l in range(Q)], 1)
+
+    def epoch_stamps(ids):
+        """last after a step catch-up at every step m of ids (one row a step)."""
+        g = global_ids(ids)
+        stamps = torch.arange(1, ids.numel() + 1, device=dev, dtype=torch.int32)
+        return torch.zeros(data.dim, dtype=torch.int32, device=dev).scatter_reduce_(
+            0, g.reshape(-1), stamps.repeat_interleave(g.shape[1]), "amax")
+
+    require(torch.equal(last_state, epoch_stamps(ck_ids[:m_ck, 0])),
+            "lazy_catchup: last != the epoch's stamps")
+    w_ck, last_ck = w_state[:d0].clone(), last_state[:d0].clone()
+    emit({"phase": "lazy_check_state", "steps": m_ck, "blocks": Q, "catchup_loop_s": epoch_s,
+          "features_touched": int(torch.count_nonzero(last_state)),
+          "features_touched_block0": int(torch.count_nonzero(last_ck)),
           "last_equals_stamps": True})
     lazy_rows = {}
 
     def lazy_check(kernel, u_ck, reg_name, case, got, want, last_ok, tol, w_in, time_it,
-                   cpu_bits=None):
+                   cpu_bits=None, extra=None):
         err = torch.abs(got - want)
         ok = bool(torch.all(err <= tol)) and cpu_bits is not False
         row = {"phase": "kernel_check", "kernel": kernel, "u": u_ck, "reg": reg_name,
@@ -623,6 +754,7 @@ def run() -> dict:
                "last_exact": last_ok}
         if cpu_bits is not None:
             row["bitwise_vs_cpu_plain"] = cpu_bits
+        row.update(extra or {})
         if time_it is not None:
             row.update(time_it())
         emit(row)
@@ -635,6 +767,11 @@ def run() -> dict:
                 "plain_ms": device_ms(torch, plain_fn, plain_iters, restore),
                 "host_ms": host_ms(torch, fn, 200), "library_ms": None,
                 "bound_ms": b_ms, "bound_by": b_by}
+
+    def chain_bound_ms(k_max):
+        """The longest replay's dependent chain: k_max steps of
+        REPLAY_CHAIN_OPS float operations, FADD_CYCLES each."""
+        return k_max * REPLAY_CHAIN_OPS * FADD_CYCLES / sm_clock_hz * 1e3
 
     def replay_steps(last, m, stop):
         k = torch.clamp_min(min(stop, m) - last, 0)
@@ -655,28 +792,31 @@ def run() -> dict:
                 timed = reg_name == reg.name and case == "unmasked"
                 # catch-up: unmasked eta; "masked" = an Option II tail (stop < m).
                 stop = m_ck if case == "unmasked" else 3 * m_ck // 4
-                if u_ck <= 8:  # u = 64 holds the touched pass only
-                    a = (w_ck.clone(), last_ck.clone())
-                    b = (w_ck.clone(), last_ck.clone())
-                    lazy_mod.lazy_catchup(*a, z_real, idx, eta, m_ck, stop, lam, lam1, lam2)
-                    lazy_mod.lazy_catchup_plain(*b, z_real, idx, eta, m_ck, stop, lam, lam1, lam2)
-                    k = replay_steps(last_ck, m_ck, stop)
-                    tol = LAZY_RTOL * (k + 1) * (torch.abs(w_ck) + torch.abs(b[0])
-                                                 + eta * torch.abs(z_real))
-                    steps = float(k[distinct].sum())
+                # The one-block catch-up (the q = 1 case of the step launch).
+                a = (w_ck.clone(), last_ck.clone())
+                b = (w_ck.clone(), last_ck.clone())
+                lazy_mod.lazy_catchup(*a, z_real, idx, eta, m_ck, stop, lam, lam1, lam2)
+                lazy_mod.lazy_catchup_plain(*b, z_real, idx, eta, m_ck, stop, lam, lam1, lam2)
+                k = replay_steps(last_ck, m_ck, stop)
+                tol = LAZY_RTOL * (k + 1) * (torch.abs(w_ck) + torch.abs(b[0])
+                                             + eta * torch.abs(z_real))
+                steps = float(k[distinct].sum())
+                chain = int(k[distinct].max())
 
-                    def restore(a=a):
-                        a[0].copy_(w_ck)
-                        a[1].copy_(last_ck)
+                def restore(a=a):
+                    a[0].copy_(w_ck)
+                    a[1].copy_(last_ck)
 
-                    lazy_check("lazy_catchup", u_ck, reg_name, case, a[0], b[0],
-                               bool(torch.equal(a[1], b[1])), tol, w_ck,
-                               (lambda: timings(
-                                   lambda: lazy_mod.lazy_catchup(*a, z_real, idx, eta, m_ck, stop, lam, lam1, lam2),
-                                   lambda: lazy_mod.lazy_catchup_plain(*a, z_real, idx, eta, m_ck, stop, lam, lam1, lam2),
-                                   restore, 3, entries * 4 + distinct.numel() * 20,
-                                   steps * step_flops(lam1, lam2)) | {"replayed_steps": steps})
-                               if timed else None)
+                lazy_check("lazy_catchup", u_ck, reg_name, case, a[0], b[0],
+                           bool(torch.equal(a[1], b[1])), tol, w_ck,
+                           (lambda: timings(
+                               lambda: lazy_mod.lazy_catchup(*a, z_real, idx, eta, m_ck, stop, lam, lam1, lam2),
+                               lambda: lazy_mod.lazy_catchup_plain(*a, z_real, idx, eta, m_ck, stop, lam, lam1, lam2),
+                               restore, 3, entries * 4 + distinct.numel() * 20,
+                               steps * step_flops(lam1, lam2))
+                            | {"replayed_steps": steps})
+                           if timed else None,
+                           extra={"longest_replay": chain, "chain_bound_ms": chain_bound_ms(chain)})
                 # touch and proba: masked = eta * mask = 0.
                 eta_m = eta if case == "unmasked" else 0.0
                 for kernel, c in (("lazy_touch_update", None), ("lazy_proba_update", corr)):
@@ -723,6 +863,96 @@ def run() -> dict:
                                    restore, 3, d0 * 16, steps * step_flops(lam1, lam2))
                                 | {"replayed_steps": steps})
                                if timed else None)
+
+    # 3b'. The step catch-up: one launch for a step's rows in all 8 blocks
+    # (ops.lazy_step_catchup), from the state above at step m_ck, for the
+    # four regularizers, unmasked and with an Option II tail; w and last
+    # bitwise the CPU's plain version (lazy_catchup_plain block after block).
+    # Timed at the path's regularizer, unmasked, beside the path before (8
+    # one-block launches with their 8 row gathers) and the card's plain
+    # version.  Then a step at m = N = 19,954 (the paper's M), its stamps
+    # built from 19,954 sampled rows as above: replays of up to 19,954 steps.
+    z_all_cpu = z_all.cpu()
+    step_ck_rows = {}
+
+    def step_catchup_row(label, u_ck, reg_name, case, ids, w_in, last_in, m_at, stop, timed,
+                         time_plain=True):
+        lam, lam1, lam2 = settings[reg_name]
+        a = (w_in.clone(), last_in.clone())
+        ops.reset_launch_counts()
+        ops.lazy_step_catchup(bd8, ids, *a, z_all, eta, m_at, stop, lam=lam, lam1=lam1,
+                              lam2=lam2)
+        one_launch = ops.launch_counts()["lazy_catchup"] == 1
+        cpu = (w_in.cpu(), last_in.cpu())
+        ops.lazy_step_catchup(bd8_cpu, ids.cpu(), *cpu, z_all_cpu, eta, m_at, stop, lam=lam,
+                              lam1=lam1, lam2=lam2)
+        bits = bitwise_vs_cpu(a[0], cpu[0]) and bool(torch.equal(a[1].cpu(), cpu[1]))
+        g = global_ids(ids).reshape(-1)
+        distinct = torch.unique(g)
+        k = replay_steps(last_in, m_at, stop)[distinct]
+        chain = int(k.max())
+        row = {"phase": "kernel_check", "kernel": "lazy_catchup", "entry": "ops.lazy_step_catchup",
+               "u": u_ck, "reg": reg_name, "case": case, "shape": label, "blocks": Q, "m": m_at,
+               "stop": stop, "entries": g.numel(), "distinct_ids": distinct.numel(),
+               "ctas": sum(-(-u_ck * w // 256) for w in bd8.nnz_budgets),
+               "launches_per_call": 1 if one_launch else None,
+               "bitwise_vs_cpu_plain": bits,
+               "n_differ": int(torch.count_nonzero(a[0].cpu() != cpu[0])),
+               "max_abs_err": float(torch.max(torch.abs(a[0].cpu() - cpu[0]))),
+               "tolerance": "w and last bitwise the CPU plain version",
+               "replayed_steps": float(k.sum()), "longest_replay": chain,
+               "chain_bound_ms": chain_bound_ms(chain),
+               "replay_chain_ops": REPLAY_CHAIN_OPS, "fadd_cycles": FADD_CYCLES,
+               "sm_clock_max_mhz": sm_clock_hz / 1e6}
+        if timed:
+            def restore(a=a):
+                a[0].copy_(w_in)
+                a[1].copy_(last_in)
+
+            def per_block(a=a):
+                for l in range(Q):
+                    lo, hi = bounds8[l], bounds8[l + 1]
+                    lazy_mod.lazy_catchup(a[0][lo:hi], a[1][lo:hi], z_all[lo:hi],
+                                          bd8.indices[l][ids], eta, m_at, stop, lam, lam1, lam2)
+
+            b_ms, b_by = bound_ms(g.numel() * 4 + ids.numel() * 8 + distinct.numel() * 20,
+                                  float(k.sum()) * step_flops(lam1, lam2))
+            row.update({
+                "l2": "warm",
+                "kernel_ms": device_ms(torch, lambda: ops.lazy_step_catchup(
+                    bd8, ids, *a, z_all, eta, m_at, stop, lam=lam, lam1=lam1, lam2=lam2),
+                    50, restore),
+                "per_block_ms": device_ms(torch, per_block, 50, restore),
+                # The plain loop launches ~8 kernels a replayed step and block.
+                "plain_ms": device_ms(torch, lambda: lazy_mod.catchup_plain(
+                    bd8.indices, bounds8, ids, *a, z_all, eta, m_at, stop, lam, lam1, lam2),
+                    3, restore) if time_plain else None,
+                "host_ms": host_ms(torch, lambda: ops.lazy_step_catchup(
+                    bd8, ids, *a, z_all, eta, m_at, stop, lam=lam, lam1=lam1, lam2=lam2), 200),
+                "per_block_host_ms": host_ms(torch, per_block, 50),
+                "library_ms": None, "bound_ms": b_ms, "bound_by": b_by})
+            row["kernel_over_chain_bound"] = row["kernel_ms"] / row["chain_bound_ms"]
+        emit(row)
+        require(one_launch and bits, f"lazy_catchup step {label} u={u_ck} {reg_name} {case}: {row}")
+        step_ck_rows[(label, u_ck, reg_name, case)] = row
+        return row
+
+    for u_ck in (1, 8, 64):
+        ids = sampled64 if u_ck == 64 else ck_ids[m_ck, :u_ck]
+        for reg_name in settings:
+            for case in ("unmasked", "masked"):
+                step_catchup_row(f"step m={m_ck}, 8 blocks", u_ck, reg_name, case, ids, w_state,
+                                 last_state, m_ck, m_ck if case == "unmasked" else 3 * m_ck // 4,
+                                 reg_name == reg.name and case == "unmasked")
+    m_full = n  # the paper's M = N inner steps per outer
+    full_ids = torch.from_numpy(
+        draw_samples(np.random.default_rng(SEED + 8), n, m_full + 1, 1).astype(np.int64)[:, 0]
+    ).to(dev)
+    last_full = epoch_stamps(full_ids[:m_full])
+    step_catchup_row(f"step m={m_full}, 8 blocks", 1, reg.name, "unmasked",
+                     full_ids[m_full:], w_state, last_full, m_full, m_full, True,
+                     time_plain=False)
+    del last_full
 
     # 3c. The lazy touched pass on the widest block a preset gives,
     # kdd2010's d at q = 1 (29,890,095 features, 176x news20's block 0):
@@ -787,7 +1017,7 @@ def run() -> dict:
     counts = ops.launch_counts()
     per_outer = 2 * Q * n + INNER_STEPS * 2 * Q * u
     expected_counts = expected_launches(
-        ops, sparse_margin=Q * (OUTERS + 1) + Q * INNER_STEPS * OUTERS,
+        ops, sparse_margin=(OUTERS + 1) + INNER_STEPS * OUTERS,
         block_scatter=OUTERS + 1, prox_update=Q * INNER_STEPS * OUTERS)
     objs = [h.objective for h in res.history]
     emit({"phase": "main_path", "entry": "run_fdsvrg", "config": cfg_preset.name,
@@ -822,14 +1052,62 @@ def run() -> dict:
         run_fdsvrg(None, part8, loss, reg, window, block_data=bd8)
         torch.cuda.synchronize()
         window_s = time.perf_counter() - t0
-    by_kernel = device_kernels(torch, prof)[0]
+    by_kernel, main_calls = device_kernels(torch, prof)
     busy_s = sum(by_kernel.values()) / 1e6
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+
+    # Launches per inner step, dense and exact lazy: one epoch of
+    # LAUNCH_COUNT_STEPS steps from the first snapshot, profiled alone (the
+    # lazy epoch's flush adds 8 launches), and the torch gathers of sampled
+    # rows (a 2-D tensor indexed by a tensor) each epoch makes, counted
+    # through a TorchFunctionMode: none on the kernel path.
+    from torch.overrides import TorchFunctionMode
+
+    class RowGathers(TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.count = 0
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func is torch.Tensor.__getitem__ and args[0].dim() == 2 and \
+                    isinstance(args[1], torch.Tensor):
+                self.count += 1
+            return func(*args, **(kwargs or {}))
+
+    z_p, s0_p = _full_grad_blocks(bd8, torch.zeros(data.dim, device=dev), loss, True)
+    lc_samples = draw_samples(np.random.default_rng(SEED + 9), n, LAUNCH_COUNT_STEPS, u)
+    lc_mask = np.ones(LAUNCH_COUNT_STEPS, dtype=np.float32)
+    w_zero = torch.zeros(data.dim, device=dev)
+    per_step, gathers = {}, {}
+    for mode in ("dense", "lazy", "dense plain"):
+        def epoch(kernels=mode != "dense plain", lazy=mode == "lazy"):
+            if lazy:
+                return _lazy_inner_epoch(bd8, w_zero, z_p, s0_p, lc_samples, cfg.eta, lc_mask,
+                                         None, loss, reg, kernels, "exact")
+            return _inner_epoch(bd8, w_zero, z_p, s0_p, lc_samples, cfg.eta, lc_mask, loss, reg,
+                                kernels)
+
+        epoch()
+        torch.cuda.synchronize()
+        with RowGathers() as mode_counter:
+            epoch()
+        gathers[mode] = mode_counter.count
+        if mode != "dense plain":
+            with profile(activities=[ProfilerActivity.CUDA]) as lc_prof:
+                epoch()
+                torch.cuda.synchronize()
+            per_step[mode] = sum(device_kernels(torch, lc_prof)[1].values()) / LAUNCH_COUNT_STEPS
     emit({"phase": "main_path_profile", "inner_steps": PROFILE_STEPS, "outers": 1,
           "note": "one outer = 2 snapshots + the inner steps; profiler running (CUDA activity)",
           "wall_s": window_s, "device_busy_s": busy_s,
           "device_idle_share": 1.0 - busy_s / window_s,
-          "top_kernels_us": [[k[:90], v] for k, v in top]})
+          "device_kernels": sum(main_calls.values()),
+          "device_kernels_per_step_of_an_epoch": per_step,
+          "row_gathers_per_epoch": gathers, "epoch_steps": LAUNCH_COUNT_STEPS,
+          "top_kernels_us_calls": [[k[:90], v, main_calls.get(k, 0)] for k, v in top]})
+    require(gathers["dense"] == 0 and gathers["lazy"] == 0
+            and gathers["dense plain"] == Q * LAUNCH_COUNT_STEPS * 2,
+            f"torch gathers of the sampled rows: {gathers}")
 
     # 5. Two short kernel-path runs, bitwise equal; one against the plain path.
     short = SVRGConfig(eta=cfg_preset.eta, inner_steps=PLAIN_CHECK_STEPS, outer_iters=1,
@@ -894,8 +1172,8 @@ def run() -> dict:
     lazy_wall = time.perf_counter() - t0
     lazy_counts = ops.launch_counts()
     lazy_expected = expected_launches(
-        ops, sparse_margin=Q * (OUTERS + 1) + Q * INNER_STEPS * OUTERS,
-        block_scatter=OUTERS + 1, lazy_catchup=Q * INNER_STEPS * OUTERS,
+        ops, sparse_margin=(OUTERS + 1) + INNER_STEPS * OUTERS,
+        block_scatter=OUTERS + 1, lazy_catchup=INNER_STEPS * OUTERS,
         lazy_touch_update=Q * INNER_STEPS * OUTERS,
         lazy_flush=Q * OUTERS)
     lazy_objs = [h.objective for h in lazy_res.history]
@@ -960,7 +1238,7 @@ def run() -> dict:
     torch.cuda.synchronize()
     proba_wall = time.perf_counter() - t0
     proba_counts = ops.launch_counts()
-    proba_expected = expected_launches(ops, sparse_margin=Q * 2 + Q * INNER_STEPS,
+    proba_expected = expected_launches(ops, sparse_margin=2 + INNER_STEPS,
                                        block_scatter=2, lazy_proba_update=Q * INNER_STEPS)
     dense_proba_eta = run_fdsvrg(None, part8, loss, reg, proba_cfg, block_data=bd8)
     proba_obj = proba_res.history[0].objective
@@ -1446,13 +1724,17 @@ def run() -> dict:
     torch.cuda.empty_cache()
 
     # 16. The kernels line.  Launches: sparse_margin, block_scatter and
-    # prox_update from the dense main path, the exact-lazy kernels from the lazy_exact_path
+    # prox_update from the dense main path (sparse_margin's and lazy_catchup's
+    # times at one step over all 8 blocks, their launches on the path), the
+    # exact-lazy kernels from the lazy_exact_path
     # run, lazy_proba_update from the lazy_proba_path run, the dense-layout
     # kernels from the dense_step run, flash_decode from lm_decode_long.
     # Times at the main path's shapes (block 0, u = 1, its regularizer,
     # unmasked), the dense step's (block 0's full f32 matrix, one step's
     # N = 1, d_block) and one long decode step's (B = 1, 32,768 positions).
-    snap = margin_rows["snapshot R=N"]
+    margin_step = multi_margin_rows[f"step u={u}"]
+    snap8 = multi_margin_rows["snapshot R=N"]
+    ck_step = step_ck_rows[(f"step m={m_ck}, 8 blocks", u, reg.name, "unmasked")]
     step = prox_rows[(u, reg.name)]
     fd_label = f"qwen3-14b B = 1, length = {INPUT_SHAPES['decode_32k'].seq_len}"
     fd_row = decode_rows[fd_label]
@@ -1480,10 +1762,15 @@ def run() -> dict:
         {"name": "sparse_margin", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/sparse_margin.cu",
          "replaces": "src/repro/kernels/sparse_margin.py:56",
-         "launches": counts["sparse_margin"], "max_abs_err": snap["max_abs_err"],
-         "ms": snap["kernel_ms"], "host_ms": snap["host_ms"], "plain_ms": snap["plain_ms"],
-         "bound_ms": snap["bound_ms"], "bound_by": snap["bound_by"],
-         "library_ms": snap["library_ms"], "shape": f"snapshot block 0: R={n}, nnz_l={snap['nnz_l']}"},
+         "launches": counts["sparse_margin"],
+         "max_abs_err": max(multi_margin_rows[k]["max_abs_err"] for k in multi_margin_rows),
+         "ms": margin_step["kernel_ms"], "host_ms": margin_step["host_ms"],
+         "plain_ms": margin_step["plain_ms"], "bound_ms": margin_step["bound_ms"],
+         "bound_by": margin_step["bound_by"], "library_ms": margin_step["library_ms"],
+         "floor_ms": margin_step["floor_ms"], "per_block_ms": margin_step["per_block_ms"],
+         "snapshot_ms": snap8["kernel_ms"], "snapshot_bound_ms": snap8["bound_ms"],
+         "snapshot_library_ms": snap8["library_ms"],
+         "shape": f"one inner step over 8 blocks, u={u} (the snapshot: R={n})"},
         {"name": "block_scatter", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/block_scatter.cu",
          "replaces": "src/repro/data/block_csr.py:271",
@@ -1505,8 +1792,17 @@ def run() -> dict:
          "ms": step["kernel_ms"], "host_ms": step["host_ms"], "plain_ms": step["plain_ms"],
          "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
          "library_ms": None, "shape": f"inner step block 0: d_l={d0}, u={u}, {reg.name}"},
-        lazy_entry("lazy_catchup", 125, lazy_counts["lazy_catchup"],
-                   f"block 0, u={u}, step m={m_ck} after a {m_ck}-step epoch, {reg.name}"),
+        {"name": "lazy_catchup", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/lazy_update.cu",
+         "replaces": "src/repro/kernels/lazy_update.py:125",
+         "launches": lazy_counts["lazy_catchup"],
+         "max_abs_err": max(r["max_abs_err"] for r in step_ck_rows.values()),
+         "ms": ck_step["kernel_ms"], "host_ms": ck_step["host_ms"],
+         "plain_ms": ck_step["plain_ms"], "bound_ms": ck_step["bound_ms"],
+         "bound_by": ck_step["bound_by"], "chain_bound_ms": ck_step["chain_bound_ms"],
+         "per_block_ms": ck_step["per_block_ms"], "library_ms": None,
+         "shape": f"one step over 8 blocks, u={u}, m={m_ck} after a {m_ck}-step epoch, "
+                  f"{reg.name} (bitwise the CPU)"},
         lazy_entry("lazy_touch_update", 177, lazy_counts["lazy_touch_update"],
                    f"block 0: d_l={d0}, u={u}, {reg.name}"),
         lazy_entry("lazy_flush", 224, lazy_counts["lazy_flush"],

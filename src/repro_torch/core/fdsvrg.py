@@ -19,11 +19,13 @@ with ``lazy_updates="exact" | "proba"``, :func:`_lazy_inner_epoch`
 (epoch; the reference's ``lax.scan`` becomes a Python loop that never
 waits on the device).
 
-``use_kernels=True`` (the default) routes the gather-margin, the
-snapshot scatter, the fused scatter + update + prox and the lazy steps through
-:mod:`repro_torch.kernels.ops`: the CUDA kernels on a CUDA device, their
-plain PyTorch versions on the CPU.  ``use_kernels=False`` is the plain
-path written like the reference's jnp oracle.
+``use_kernels=True`` (the default) routes the gather-margin (with the
+row gathers and the tree sum: one launch a step and one a snapshot for
+all q blocks), the snapshot scatter, the fused scatter + update + prox
+and the lazy steps (the catch-up one launch a step for all q blocks)
+through :mod:`repro_torch.kernels.ops`: the CUDA kernels on a CUDA
+device, their plain PyTorch versions on the CPU.  ``use_kernels=False``
+is the plain path written like the reference's jnp oracle.
 """
 
 from __future__ import annotations
@@ -110,11 +112,9 @@ def _bounds(block_dims: tuple[int, ...]) -> tuple[int, ...]:
     return tuple(b)
 
 
-def _block_margins(idx, val, w_block, use_kernels: bool) -> torch.Tensor:
-    """Per-block partial margins over block-LOCAL rows."""
-    if use_kernels:
-        return ops.sparse_margins(idx, val, w_block)
-    return local_margins(idx, val, w_block)
+def _gather_rows(bd: BlockCSR, ids: torch.Tensor) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """Every block's sampled rows (the plain path's torch gathers)."""
+    return [(bd.indices[l][ids], bd.values[l][ids]) for l in range(bd.num_blocks)]
 
 
 def _snapshot_scatter(bd: BlockCSR, coeffs, use_kernels: bool) -> torch.Tensor:
@@ -139,14 +139,14 @@ def _full_grad_blocks(
     in tree order (Alg 1 lines 3-4), then a block-local scatter (line 5).
     Returns the concatenated z and the margins s0."""
     bd = block_data
-    bounds = _bounds(bd.block_dims)
-    parts = [
-        _block_margins(
-            bd.indices[l], bd.values[l], w[bounds[l]:bounds[l + 1]], use_kernels
-        )
-        for l in range(bd.num_blocks)
-    ]
-    s0 = tree_order_sum(parts)
+    if use_kernels:
+        s0 = ops.snapshot_margins(bd, w)
+    else:
+        bounds = _bounds(bd.block_dims)
+        s0 = tree_order_sum([
+            local_margins(bd.indices[l], bd.values[l], w[bounds[l]:bounds[l + 1]])
+            for l in range(bd.num_blocks)
+        ])
     coeffs = _divide(loss.dvalue(s0, bd.labels), bd.num_instances)
     return _snapshot_scatter(bd, coeffs, use_kernels), s0
 
@@ -196,7 +196,9 @@ def _inner_epoch(
     ``w <- prox_{eta*g}(w - eta * (grad_vr + z + smooth_grad g))`` block by
     block.  The step size is ``float32(eta) * mask[m]``, taken on the host
     from numpy, and the sample ids go to the device once per epoch, so no
-    step makes the host wait for the device.
+    step makes the host wait for the device.  On the kernel path one
+    launch gives the margins and the gathered rows of all q blocks, and
+    each block's update writes a copy of ``w0`` in place.
     """
     bd = block_data
     device = w0.device
@@ -206,34 +208,39 @@ def _inner_epoch(
     eta_steps = np.float32(eta) * step_mask.astype(np.float32)  # float32[M]
     ids_all = _to_device(samples.astype(np.int64), device)
     u_t = torch.full((), float(u), dtype=w0.dtype, device=device)
-    if not use_kernels:
-        eta_dev = _to_device(eta_steps, device)
     lams = (reg.smooth_lam, reg.prox_l1, reg.prox_l2)
-    w_blocks = [w0[bounds[l]:bounds[l + 1]] for l in range(q)]
+    if use_kernels:
+        w = w0.clone()
+        rows_buf = ops.step_rows(bd, u)
+    else:
+        w = w0
+        eta_dev = _to_device(eta_steps, device)
+    w_blocks = [w[bounds[l]:bounds[l + 1]] for l in range(q)]
     z_blocks = [z_data[bounds[l]:bounds[l + 1]] for l in range(q)]
     for m in range(m_total):
         ids = ids_all[m]
         y = bd.labels[ids]
-        rows = [(bd.indices[l][ids], bd.values[l][ids]) for l in range(q)]
-        parts = [
-            _block_margins(rows[l][0], rows[l][1], w_blocks[l], use_kernels)
-            for l in range(q)
-        ]
-        # Pairwise summation mirroring Figure 5 (the FD == serial contract).
-        s_m = tree_order_sum(parts)
+        if use_kernels:
+            s_m, rows, _ = ops.step_margins(bd, ids, w, out=rows_buf)
+        else:
+            rows = _gather_rows(bd, ids)
+            # Pairwise summation mirroring Figure 5 (the FD == serial contract).
+            s_m = tree_order_sum([local_margins(*rows[l], w_blocks[l]) for l in range(q)])
         coef = (loss.dvalue(s_m, y) - loss.dvalue(s0[ids], y)) / u_t
         for l in range(q):
             idx, val = rows[l]
             if use_kernels:
-                w_blocks[l] = ops.fused_block_prox_update(
+                ops.fused_block_prox_update(
                     w_blocks[l], idx, val, coef, z_blocks[l], float(eta_steps[m]),
-                    lam=lams[0], lam1=lams[1], lam2=lams[2],
+                    lam=lams[0], lam1=lams[1], lam2=lams[2], out=w_blocks[l],
                 )
             else:
                 eta_m = eta_dev[m]
                 g = local_scatter(idx, val, coef, bd.block_dims[l])
                 g = g + z_blocks[l] + reg.smooth_grad(w_blocks[l])
                 w_blocks[l] = reg.prox(w_blocks[l] - eta_m * g, eta_m)
+    if use_kernels:
+        return w
     return torch.cat(w_blocks) if q > 1 else w_blocks[0]
 
 
@@ -296,7 +303,9 @@ def _lazy_inner_epoch(
 
     Both read only block-local state, so the metered schedule is the dense
     one.  ``w0`` is copied once; the steps update the copy in place (the
-    lazy kernels and their plain versions work in place).  Samples, mask
+    lazy kernels and their plain versions work in place).  On the kernel
+    path a step's catch-up is one launch for all q blocks, and so are its
+    margins with the gathered rows.  Samples, mask
     and ``stop = sum(mask)`` come from numpy on the host, so on the kernel
     path no step waits on the device.  ``use_kernels=False`` mirrors the
     reference's jnp closures; its replay reads ``max(k_active)`` from the
@@ -323,7 +332,9 @@ def _lazy_inner_epoch(
         last_blocks = [last[bounds[l]:bounds[l + 1]] for l in range(q)]
     else:
         corr_blocks = [corrections[bounds[l]:bounds[l + 1]] for l in range(q)]
-    if not use_kernels:
+    if use_kernels:
+        rows_buf = ops.step_rows(bd, u)
+    else:
         eta_dev = _to_device(eta_steps, device)
         eta_full = torch.full((), eta32, dtype=w0.dtype, device=device)
 
@@ -382,23 +393,19 @@ def _lazy_inner_epoch(
     for m in range(m_total):
         ids = ids_all[m]
         y = bd.labels[ids]
-        rows = [(bd.indices[l][ids], bd.values[l][ids]) for l in range(q)]
-        if exact:
-            for l in range(q):
-                if use_kernels:
-                    ops.lazy_block_catchup(
-                        w_blocks[l], last_blocks[l], z_blocks[l], rows[l][0],
-                        eta32, m, stop, lam=smooth_lam, lam1=lam1, lam2=lam2,
-                    )
-                else:
+        # The margins gather only touched ids, which the catch-up first
+        # materializes: coef is the dense epoch's, bit for bit.
+        if use_kernels:
+            if exact:
+                ops.lazy_step_catchup(bd, ids, w, last, z_data, eta32, m, stop,
+                                      lam=smooth_lam, lam1=lam1, lam2=lam2)
+            s_m, rows, _ = ops.step_margins(bd, ids, w, out=rows_buf)
+        else:
+            rows = _gather_rows(bd, ids)
+            if exact:
+                for l in range(q):
                     plain_catchup(w_blocks[l], last_blocks[l], z_blocks[l], rows[l][0], m)
-        # The margins gather only touched ids, which the catch-up just
-        # materialized: coef is the dense epoch's, bit for bit.
-        parts = [
-            _block_margins(rows[l][0], rows[l][1], w_blocks[l], use_kernels)
-            for l in range(q)
-        ]
-        s_m = tree_order_sum(parts)
+            s_m = tree_order_sum([local_margins(*rows[l], w_blocks[l]) for l in range(q)])
         coef = (loss.dvalue(s_m, y) - loss.dvalue(s0[ids], y)) / u_t
         for l in range(q):
             idx, val = rows[l]
@@ -544,18 +551,13 @@ def run_fdsvrg(
 # ---------------------------------------------------------------------------
 
 
-def _sim_margins(idx, val, w_block, use_kernels: bool) -> torch.Tensor:
-    return _block_margins(idx, val, w_block, use_kernels)
-
-
-
-
 def _sim_update(w_block, idx, val, coef, z_block, eta_m: float, reg, use_kernels: bool):
-    """One worker's dense prox step; ``eta_m`` a float32 host value."""
+    """One worker's dense prox step; ``eta_m`` a float32 host value.  The
+    kernel path updates ``w_block`` in place."""
     if use_kernels:
         return ops.fused_block_prox_update(
             w_block, idx, val, coef, z_block, eta_m,
-            lam=reg.smooth_lam, lam1=reg.prox_l1, lam2=reg.prox_l2,
+            lam=reg.smooth_lam, lam1=reg.prox_l1, lam2=reg.prox_l2, out=w_block,
         )
     eta_t = torch.full((), eta_m, dtype=w_block.dtype, device=w_block.device)
     g = (
@@ -568,18 +570,9 @@ def _sim_update(w_block, idx, val, coef, z_block, eta_m: float, reg, use_kernels
 
 # The lazy per-step worker operations: the ops wrappers (kernels on the
 # card, plain versions on the CPU) or, with use_kernels=False, the plain
-# versions on any device.  All update the worker's block in place.
-
-
-def _sim_lazy_catchup(w_block, last_block, z_block, idx, eta, m, stop, lams, use_kernels):
-    lam, lam1, lam2 = lams
-    if use_kernels:
-        return ops.lazy_block_catchup(
-            w_block, last_block, z_block, idx, eta, m, stop, lam=lam, lam1=lam1, lam2=lam2
-        )
-    return lazy_update.lazy_catchup_plain(
-        w_block, last_block, z_block, idx, eta, m, stop, lam, lam1, lam2
-    )
+# versions on any device.  All update the worker's block in place.  (The
+# catch-up of all workers is one ops.lazy_step_catchup launch on the
+# kernel path; the plain path runs lazy_catchup_plain worker by worker.)
 
 
 def _sim_lazy_touch(w_block, idx, val, coef, z_block, eta_m, lams, use_kernels):
@@ -678,11 +671,12 @@ def fdsvrg_worker_simulation(
         # Lines 3-4: per-worker partial margins, canonical tree-order sum;
         # line 5: each worker's purely local scatter of its full-gradient
         # block (on the card, one launch covers all q workers' blocks).
-        blocks = split(w)
-        partials = [
-            _sim_margins(*block_data.block(l), blocks[l], use_kernels) for l in range(q)
-        ]
-        s0 = tree_order_sum(partials)
+        if use_kernels:
+            s0 = ops.snapshot_margins(block_data, w)
+        else:
+            blocks = split(w)
+            s0 = tree_order_sum([local_margins(*block_data.block(l), blocks[l])
+                                 for l in range(q)])
         coeffs0 = _divide(loss.dvalue(s0, labels), n)
         return _snapshot_scatter(block_data, coeffs0, use_kernels), s0
 
@@ -698,32 +692,36 @@ def fdsvrg_worker_simulation(
         # Account the full-gradient tree this outer consumed (lines 3-4).
         backend.meter_tree(payload=n)
         eta_eff = cfg.eta * eta_scale
-        blocks = split(w.clone())  # the lazy steps work in place
+        w = w.clone()  # the lazy steps and the kernel path's updates work in place
+        blocks = split(w)
         z_blocks = split(z_data)
         samples = draw_samples(rng, n, cfg.inner_steps, u)
         mask = option_mask(rng, cfg.inner_steps, cfg.option)
         eta_full = float(np.float32(eta_eff))
         stop = int(mask.sum())
-        lasts = [
-            torch.zeros((block_dims[l],), dtype=torch.int32, device=device)
-            for l in range(q)
-        ]
+        last = torch.zeros((block_data.dim,), dtype=torch.int32, device=device)
+        lasts = split(last)
         ids_all = _to_device(samples.astype(np.int64), device)
+        rows_buf = ops.step_rows(block_data, u) if use_kernels else None
         for m in range(cfg.inner_steps):
             ids = ids_all[m]
-            rows = [(block_data.indices[l][ids], block_data.values[l][ids]) for l in range(q)]
             y = labels[ids]
-            if exact:
-                # Replay each touched feature's deferred steps so the margin
-                # read below sees the materialized values.
-                for l in range(q):
-                    _sim_lazy_catchup(blocks[l], lasts[l], z_blocks[l], rows[l][0],
-                                      eta_full, m, stop, lams, use_kernels)
-            # Lines 9-10: per-worker partial margins, tree-summed (u scalars).
-            partial_m = [
-                _sim_margins(rows[l][0], rows[l][1], blocks[l], use_kernels)
-                for l in range(q)
-            ]
+            # Replay each touched feature's deferred steps so the margin
+            # read below sees the materialized values; lines 9-10: per-worker
+            # partial margins, tree-summed (u scalars).
+            if use_kernels:
+                if exact:
+                    ops.lazy_step_catchup(block_data, ids, w, last, z_data, eta_full, m,
+                                          stop, lam=lams[0], lam1=lams[1], lam2=lams[2])
+                step = ops.step_margins(block_data, ids, w, partials=True, out=rows_buf)
+                rows, partial_m = step.rows, list(step.parts)
+            else:
+                rows = _gather_rows(block_data, ids)
+                if exact:
+                    for l in range(q):
+                        lazy_update.lazy_catchup_plain(blocks[l], lasts[l], z_blocks[l],
+                                                       rows[l][0], eta_full, m, stop, *lams)
+                partial_m = [local_margins(*rows[l], blocks[l]) for l in range(q)]
             s_m = backend.all_reduce(partial_m, payload=u)
             coef = (loss.dvalue(s_m, y) - loss.dvalue(s0[ids], y)) / u_t
             eta_m = float(np.float32(eta_eff * float(mask[m])))

@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.core.partition import FeaturePartition
 from repro_torch.data.sparse import PaddedCSR
+from repro_torch.kernels import _build
 from repro_torch.kernels.block_scatter import ScatterIndex, snapshot_index
 
 
@@ -48,6 +49,12 @@ class BlockCSR:
     # holds no pointers).
     _snapshot_index: dict = dataclasses.field(
         default_factory=dict, compare=False, repr=False
+    )
+    # block_rows' cache, keyed by device.  It holds the rows' raw pointers,
+    # so every copy starts its own (init=False: replace and .to() do not
+    # pass it on).
+    _block_rows: dict = dataclasses.field(
+        default_factory=dict, init=False, compare=False, repr=False
     )
 
     @property
@@ -100,6 +107,18 @@ class BlockCSR:
                 self.indices, self.values, self.block_dims
             )
         return self._snapshot_index[key]
+
+    def block_rows(self) -> _build.BlockRows:
+        """The q blocks' rows as the margins and catch-up kernels take them
+        by value (one launch a step for all q blocks), built at first use
+        on a CUDA device and kept: a step then costs one ctypes call."""
+        key = str(self.values[0].device)
+        if key not in self._block_rows:
+            self._block_rows[key] = _build.block_rows(
+                "BlockCSR.block_rows", self.indices, self.values, self.block_dims,
+                self.values[0].device,
+            )
+        return self._block_rows[key]
 
     def to(self, device: torch.device | str) -> "BlockCSR":
         """The same layout with every tensor on ``device``."""

@@ -32,7 +32,9 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 # stream are c_void_p so ctypes never truncates them to 32 bits.
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = (
-    ("repro_sparse_margin", _I, (_P, _P, _P, _P, _I, _I, _P)),
+    # The margins over q blocks: the host BlockRows, q, w, the int64 row ids
+    # (or NULL), R, s, the partials, the gathered ids and values (or NULLs).
+    ("repro_sparse_margin", _I, (_P, _I, _P, _P, _I, _P, _P, _P, _P, _P)),
     # The snapshot scatter: the q values pointers and nnz_l (host arrays),
     # bounds, q, coeffs, perm, starts, heavy, heavy ids, the index's
     # heavy_min, z, dim, timing (or NULL); the stream.
@@ -42,10 +44,12 @@ _SIGNATURES = (
         _I,
         (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P),
     ),
+    # The catch-up over q blocks: the host BlockRows, q, the int64 row ids
+    # (or NULL), u, w, last, z (whole), eta, m, stop, lam, lam1, lam2.
     (
         "repro_lazy_catchup",
         _I,
-        (_P, _P, _P, _P, _I, _I, _F, _I, _I, _F, _F, _F, _P),
+        (_P, _I, _P, _I, _P, _P, _P, _F, _I, _I, _F, _F, _F, _P),
     ),
     (
         "repro_lazy_touch_update",
@@ -75,6 +79,51 @@ _SIGNATURES = (
         (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _I, _F, _I, _P),
     ),
 )
+MAX_BLOCKS = 128  # touched.cuh's kMaxBlocks: the blocks a BlockRows holds
+
+
+class BlockRows(ctypes.Structure):
+    """touched.cuh's BlockRows: q blocks' rows, passed by value to the
+    margins and catch-up launches.  It holds raw pointers: keep the
+    tensors it was built from alive as long as it is used."""
+
+    _fields_ = [
+        ("idx", _P * MAX_BLOCKS),
+        ("val", _P * MAX_BLOCKS),
+        ("nnz", _I * MAX_BLOCKS),
+        ("lo", _I * MAX_BLOCKS),
+        ("off", _I * MAX_BLOCKS),
+    ]
+
+
+def block_rows(kernel: str, indices, values, block_dims, dev) -> BlockRows:
+    """The BlockRows of q blocks' rows: int32 ids and float32 values, each
+    block's ``[N, nnz_l]`` contiguous, all with the same N, on the CUDA
+    device ``dev``; block l's features start at ``sum(block_dims[:l])``.
+    Raises on anything the kernels do not take (``values`` may be ``None``
+    for the catch-up, which reads ids only)."""
+    q = len(indices)
+    if not 1 <= q <= MAX_BLOCKS:
+        raise ValueError(f"{kernel}: {q} blocks, one launch takes 1 to {MAX_BLOCKS}")
+    if dev.type != "cuda":
+        raise ValueError(f"{kernel}: the CUDA kernel needs CUDA tensors")
+    rows = BlockRows()
+    lo = off = 0
+    for l, (idx, dim) in enumerate(zip(indices, block_dims, strict=True)):
+        require_tensor(kernel, f"indices[{l}]", idx, torch.int32, dev, (None, None))
+        n, nnz = idx.shape
+        if n != indices[0].shape[0] or nnz < 1:
+            raise ValueError(f"{kernel}: rows {tuple(idx.shape)} of block {l} not taken")
+        if values is not None:
+            require_tensor(kernel, f"values[{l}]", values[l], torch.float32, dev, (n, nnz))
+            rows.val[l] = values[l].data_ptr()
+        rows.idx[l], rows.nnz[l], rows.lo[l], rows.off[l] = idx.data_ptr(), nnz, lo, off
+        lo, off = lo + int(dim), off + nnz
+    if lo >= 2**31:
+        raise ValueError(f"{kernel}: {lo} features do not fit int32")
+    return rows
+
+
 # The input dtypes of the kernels templated on them, as the C code numbers them.
 FLOAT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

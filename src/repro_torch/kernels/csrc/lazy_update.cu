@@ -1,15 +1,18 @@
-// lazy_update: the delayed-decay (lazy) FD-SVRG inner step on one feature
-// block, four kernels.  The dense step moves every feature of the block;
-// these move only the u * nnz_l features of the sampled rows and defer the
-// rest:
+// lazy_update: the delayed-decay (lazy) FD-SVRG inner step, four kernels.
+// The dense step moves every feature of the block; these move only the
+// u * nnz_l features of the sampled rows and defer the rest:
 //
 //   lazy_catchup       — before step m reads its margins, each touched
 //                        feature j replays its deferred steps last[j]..m-1
 //                        (the dense step with g = 0.0): k_active =
 //                        max(min(stop, m) - last[j], 0) active steps, then
 //                        one masked (eta = 0) step if step m-1 was masked;
-//                        then last[j] = m + 1.  Replaces
-//                        repro/kernels/lazy_update.py:125 (lazy_catchup).
+//                        then last[j] = m + 1.  One launch covers the
+//                        step's rows in all q blocks (BlockRows of
+//                        touched.cuh, with w, last and z whole); one
+//                        block's rows are the q = 1 case.  Replaces
+//                        repro/kernels/lazy_update.py:125 (lazy_catchup),
+//                        which runs once per block.
 //   lazy_touch_update  — the dense prox step at the touched features only
 //                        (launch_entries of touched.cuh, writing w in
 //                        place).  Replaces lazy_update.py:177.
@@ -33,15 +36,28 @@
 // Duplicate ids: the sampled rows repeat ids (padding at local id 0, and
 // the generator's piled ids).  The reference's .at[flat].set is benign
 // because every duplicate lane computes from the same OLD w[j] and
-// last[j]; here a lane that read w[j] after another lane's write would
-// replay the gap twice.  So only the first-occurrence owner of an id
-// (seen_before of touched.cuh) replays and writes it.
+// last[j]; here a thread that read w[j] after another's write would
+// replay the gap twice.  So each id has one owner, by the rule of the
+// touched pass (touched.cuh's entries_kernel): a CTA of the catch-up takes
+// kOwn = 256 flat positions of one block's sampled rows, enters their ids
+// in a shared hash table (home_slot, table_insert), marks foreign every
+// key that an earlier position of the block holds (table_find), and owns
+// the rest.  Blocks hold disjoint features, so only one block's ids meet.
 //
 // What bounds them on an H100:
-//   catch-up — operations, and in practice the latency of the longest
-//     replay chain: a feature last touched early in the epoch replays
-//     ~m dependent steps.  One warp per entry, across blocks, so the
-//     chains run concurrently; lane 0 of the owner replays.
+//   catch-up — the latency of the longest replay chain: a feature last
+//     touched early in the epoch replays ~m dependent steps, each 4
+//     dependent float ops at l2 (~16 cycles), ~4 us for m = 500 at 1.98
+//     GHz.  The bytes and operations are negligible.  One thread replays
+//     each owned id, and one grid of sum_l ceil(u * nnz_l / 256) CTAs (8
+//     at u = 1 for news20 at q = 8) covers every block, so a step costs
+//     its longest chain over all q blocks plus three dependent global
+//     rounds (the row ids, the ids, then w, last and z) and one table
+//     insert, where q launches in a row cost the sum of each block's.
+//     Each thread loads its id's w, last and z before the table, so those
+//     loads overlap the inserts and the ownership scan.  The scan grows
+//     with the entries: at u = 64 block 0's last CTA reads ~10,000 earlier
+//     positions, and that, not the chain, sets the step's time.
 //   touch / proba — launch latency: u * nnz_l entries, a few dependent
 //     rounds (load, hash, compact, fold, store).  The grid is sized to
 //     the entries, not to d_block: ceil(u * nnz_l / 256) blocks of
@@ -53,8 +69,10 @@
 //     one thread per feature (d_block = 169,399 for news20 block 0).
 //
 // Preconditions (checked by the Python wrappers): float32 w/z/val/coef/
-// corr, int32 last and idx with ids in [0, d_block), all contiguous, on
-// the current device.  Each entry point returns cudaGetLastError().
+// corr, int32 last and idx with ids in [0, d_block), int64 row ids, all
+// contiguous, on the current device.  Each entry point returns
+// cudaGetLastError() (the catch-up cudaErrorInvalidValue unless 1 <= q <=
+// kMaxBlocks).
 
 #include <cuda_runtime.h>
 
@@ -62,16 +80,28 @@
 
 namespace {
 
-constexpr int kCatchupWarps = 4;  // entries per block
 constexpr int kFlushThreads = 256;
+constexpr int kRowCache = 256;  // catch-up: sampled row ids kept in shared memory
+constexpr int kScanAhead = 8;   // catch-up: earlier positions loaded at once
 
 // k_active active steps (eta), then at most one masked step (eta * 0.0).
+// The loop is taken apart on the prox strengths once, outside it, and
+// unrolled, so an l2 step is its four dependent float operations and no
+// branch (the same operations in the same order either way).
 __device__ __forceinline__ float lazy_replay(float w, float z, float eta,
                                              int k_active, bool has_masked,
                                              float lam, float lam1,
                                              float lam2) {
-  for (int i = 0; i < k_active; ++i) {
-    w = prox_step(w, 0.0f, z, eta, lam, lam1, lam2);
+  if (lam1 != 0.0f || lam2 != 0.0f) {
+#pragma unroll 4
+    for (int i = 0; i < k_active; ++i) {
+      w = prox_step(w, 0.0f, z, eta, lam, lam1, lam2);
+    }
+  } else {
+#pragma unroll 4
+    for (int i = 0; i < k_active; ++i) {
+      w = prox_step(w, 0.0f, z, eta, lam, 0.0f, 0.0f);
+    }
   }
   if (has_masked) {
     w = prox_step(w, 0.0f, z, __fmul_rn(eta, 0.0f), lam, lam1, lam2);
@@ -79,21 +109,85 @@ __device__ __forceinline__ float lazy_replay(float w, float z, float eta,
   return w;
 }
 
-__global__ void __launch_bounds__(kCatchupWarps * 32)
-lazy_catchup_kernel(float* w, int* last, const float* __restrict__ z,
-                    const int* __restrict__ idx, int entries, float eta,
-                    int m, int stop, float lam, float lam1, float lam2) {
-  const int k = blockIdx.x * kCatchupWarps + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (k >= entries) return;  // warp-uniform
-  auto id_at = [&](int p) { return __ldg(idx + p); };
-  const int j = id_at(k);
-  if (seen_before(id_at, k, j, lane)) return;  // an earlier entry owns j
-  if (lane == 0) {
-    const int ll = last[j];
+// One CTA per kOwn flat positions of one block's sampled rows (the blocks'
+// CTAs in turn); it replays the ids it owns, one thread each.  Thread tid
+// loads the id at its own position and that id's w, last and z at once,
+// then enters the id in the table; the one whose insert claims the id's
+// slot is its candidate.  A CTA whose positions come first in its block
+// (own_lo = 0, every CTA at u = 1 for news20) owns all its keys and goes
+// straight on to the replay; any other first marks foreign the keys an
+// earlier position holds.  (A lane that does not own its id loaded its
+// inputs for nothing: it writes nothing.)
+__global__ void __launch_bounds__(kTouchedThreads)
+lazy_catchup_kernel(const BlockRows rows, int q, const long long* __restrict__ ids,
+                    int u, float* w, int* last, const float* __restrict__ z,
+                    float eta, int m, int stop, float lam, float lam1, float lam2) {
+  __shared__ int keys[kTable];
+  __shared__ unsigned char foreign[kTable];
+  __shared__ long long row_of[kRowCache];  // the sampled rows' ids, the first kRowCache
+  const int tid = threadIdx.x;
+  int l = 0, c = blockIdx.x;
+  for (; l < q - 1; ++l) {
+    const int ctas = (u * rows.nnz[l] + kOwn - 1) / kOwn;
+    if (c < ctas) break;
+    c -= ctas;
+  }
+  const int nnz = rows.nnz[l];
+  const int entries = u * nnz;
+  const int own_lo = c * kOwn;
+  const int* __restrict__ idx = rows.idx[l];
+  // The id at flat position p of the block's sampled rows; the row ids
+  // from shared memory once it holds them.
+  const auto id_at = [&](int p, bool cached) {
+    const int r = p / nnz;
+    const long long src = ids == nullptr ? r
+                          : cached && r < kRowCache ? row_of[r] : __ldg(ids + r);
+    return __ldg(idx + src * nnz + (p - r * nnz));
+  };
+  const int own = own_lo + tid < entries ? id_at(own_lo + tid, false) : kEmpty;
+  const int j = rows.lo[l] + own;
+  int ll = 0;
+  float wj = 0.0f, zj = 0.0f;
+  if (own != kEmpty) {
+    ll = last[j];
+    wj = w[j];
+    zj = z[j];
+  }
+  for (int s = tid; s < kTable; s += kTouchedThreads) {
+    keys[s] = kEmpty;
+    foreign[s] = 0;
+  }
+  // The rows of the flat positions [0, own_lo), which the scan reads.
+  const int scanned_rows = own_lo > 0 ? min(u, (own_lo - 1) / nnz + 1) : 0;
+  if (ids != nullptr && tid < min(scanned_rows, kRowCache)) row_of[tid] = __ldg(ids + tid);
+  __syncthreads();
+  const int slot = own != kEmpty ? table_insert(keys, own) : -1;
+  if (own_lo > 0) {  // CTA-uniform
+    __syncthreads();  // every own id entered
+    for (int p0 = tid; p0 < own_lo; p0 += kTouchedThreads * kScanAhead) {
+      int id[kScanAhead];
+#pragma unroll
+      for (int t = 0; t < kScanAhead; ++t) {
+        const int p = p0 + t * kTouchedThreads;
+        id[t] = p < own_lo ? id_at(p, true) : kEmpty;
+      }
+#pragma unroll
+      for (int t = 0; t < kScanAhead; ++t) {
+        if (id[t] != kEmpty) {
+          const int s = table_find(keys, id[t]);
+          if (s >= 0) foreign[s] = 1;  // an earlier CTA owns it
+        }
+      }
+    }
+    __syncthreads();
+  }
+  // The table's probes leave a warp's lanes apart; without this the lanes
+  // that replay would run the loop once per such group, one after another.
+  __syncwarp();
+  if (slot >= 0 && !foreign[slot]) {
     const int k_active = max(min(stop, m) - ll, 0);
     const bool has_masked = (m - ll) > k_active;
-    w[j] = lazy_replay(w[j], z[j], eta, k_active, has_masked, lam, lam1, lam2);
+    w[j] = lazy_replay(wj, zj, eta, k_active, has_masked, lam, lam1, lam2);
     last[j] = m + 1;
   }
 }
@@ -142,16 +236,20 @@ struct ProbaUpdate {
 
 }  // namespace
 
-extern "C" int repro_lazy_catchup(float* w, int* last, const float* z,
-                                  const int* idx, int u, int nnz, float eta,
-                                  int m, int stop, float lam, float lam1,
-                                  float lam2, void* stream) {
-  const int entries = u * nnz;
-  if (entries > 0) {
-    lazy_catchup_kernel<<<(entries + kCatchupWarps - 1) / kCatchupWarps,
-                          kCatchupWarps * 32, 0,
+// rows is a host BlockRows (void: see repro_sparse_margin).
+extern "C" int repro_lazy_catchup(const void* block_rows, int q,
+                                  const long long* ids, int u, float* w,
+                                  int* last, const float* z, float eta, int m,
+                                  int stop, float lam, float lam1, float lam2,
+                                  void* stream) {
+  if (q < 1 || q > kMaxBlocks) return static_cast<int>(cudaErrorInvalidValue);
+  const BlockRows* rows = static_cast<const BlockRows*>(block_rows);
+  int ctas = 0;
+  for (int l = 0; l < q; ++l) ctas += (u * rows->nnz[l] + kOwn - 1) / kOwn;
+  if (ctas > 0) {
+    lazy_catchup_kernel<<<ctas, kTouchedThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-        w, last, z, idx, entries, eta, m, stop, lam, lam1, lam2);
+        *rows, q, ids, u, w, last, z, eta, m, stop, lam, lam1, lam2);
   }
   return static_cast<int>(cudaGetLastError());
 }

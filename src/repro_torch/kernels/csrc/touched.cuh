@@ -1,11 +1,14 @@
-// touched.cuh: the pieces the proximal inner-step kernels share.
+// touched.cuh: the pieces the inner-step kernels share.
 //
+//   BlockRows       — the q feature blocks' padded rows, passed by value:
+//                     each block's int32 ids and float32 values pointers,
+//                     its width nnz_l, its first global feature lo_l and
+//                     the offset of its part in a step's gathered rows
+//                     (sparse_margin.cu's margins, lazy_update.cu's
+//                     step catch-up);
 //   prox_step       — the dense inner step at one feature, in the
 //                     reference's association order, every float op an
 //                     __f*_rn intrinsic (nvcc contracts none into an FMA);
-//   seen_before     — warp-level: does feature id j occur at an earlier
-//                     flat position of the sampled rows?  (lazy_catchup's
-//                     ownership test);
 //   launch_range    — the dense step of a whole block in one launch
 //                     (range_kernel, parallel over feature ranges): block
 //                     b owns the features [b * kRange, (b + 1) * kRange)
@@ -17,7 +20,10 @@
 //                     owns the ids whose first occurrence lies in the flat
 //                     positions [b * kOwn, (b + 1) * kOwn), a grid of
 //                     ceil(u * nnz / kOwn) blocks whatever d is
-//                     (lazy_update.cu's touch and probabilistic updates).
+//                     (lazy_update.cu's touch and probabilistic updates);
+//   home_slot, table_insert, table_find — that kernel's shared hash table
+//                     of ids, which lazy_update.cu's step catch-up uses
+//                     for the same ownership rule.
 //
 // The contract: each touched id has one owner, which adds that id's
 // contributions val[p] * coef[p / nnz] in increasing flat position p of
@@ -26,8 +32,8 @@
 // index_add_.  No float atomics, so the result is deterministic, and an
 // update may read and write w[j] in place.
 //
-// How a block finds its ids' terms without the one-block O(entries^2)
-// ownership scan these replace: it reads the entries (u * nnz int32 ids
+// How a block finds its ids' terms without an O(entries^2) pairwise
+// ownership test: it reads the entries (u * nnz int32 ids
 // and float32 values, L2-resident: 1.3 KB at u = 1, 10 KB at u = 8 for
 // news20 block 0 at q = 8) in windows of kWindow flat positions.  It keeps
 // those whose id it owns with a stable compaction (a ballot per warp and
@@ -80,6 +86,22 @@ constexpr int kEmpty = -1;               // a free slot's key (ids are >= 0)
 static_assert(kSlots * kTouchedWarps == 64, "the prefix gives each lane two counts");
 static_assert(kTable == 2 * kOwn, "the table stays at most half full");
 
+constexpr int kMaxBlocks = 128;  // BlockRows: 3.5 KB of the 4 KB of parameters
+
+// Block l's rows are idx[l], val[l] (int32 local ids, float32), [N, nnz[l]]
+// row-major; its features are the global ids [lo[l], lo[l] + d_l); a
+// step's u gathered rows of it go to [u * off[l], u * (off[l] + nnz[l])) of
+// the gathered buffers, off[l] = nnz[0] + ... + nnz[l - 1].  Unused blocks'
+// entries are never read.  The layout is kernels/_build.py's BlockRows.
+struct BlockRows {
+  const int* idx[kMaxBlocks];
+  const float* val[kMaxBlocks];
+  int nnz[kMaxBlocks];
+  int lo[kMaxBlocks];
+  int off[kMaxBlocks];
+};
+static_assert(sizeof(BlockRows) == 3584, "the ctypes layout of kernels/_build.py");
+
 __device__ __forceinline__ float prox_step(float w, float g, float z,
                                            float eta, float lam, float lam1,
                                            float lam2) {
@@ -95,18 +117,6 @@ __device__ __forceinline__ float prox_step(float w, float g, float z,
     }
   }
   return v;
-}
-
-// The warp's 32 lanes test 32 earlier positions at a time.  Warp-uniform.
-template <class IdAt>
-__device__ __forceinline__ bool seen_before(IdAt id_at, int k, int j,
-                                           int lane) {
-  bool seen = false;
-  for (int base = 0; base < k && !seen; base += 32) {
-    const int p = base + lane;
-    seen = __any_sync(0xffffffffu, p < k && id_at(p) == j);
-  }
-  return seen;
 }
 
 // A window's kept entries in flat order: their slots and contributions,
@@ -301,10 +311,13 @@ __device__ __forceinline__ int home_slot(int id) {
 }
 
 // Enter id (linear probing); a slot's key, once claimed, never changes.
-__device__ __forceinline__ void table_insert(int* keys, int id) {
+// Returns the slot if this call claimed it, -1 if the table held id: of
+// the threads that enter one id, exactly one gets its slot.
+__device__ __forceinline__ int table_insert(int* keys, int id) {
   for (int s = home_slot(id);; s = (s + 1) & (kTable - 1)) {
     const int prev = atomicCAS(keys + s, kEmpty, id);
-    if (prev == kEmpty || prev == id) return;
+    if (prev == kEmpty) return s;
+    if (prev == id) return -1;
   }
 }
 

@@ -11,7 +11,9 @@ features of the sampled rows and defer the decay of the rest:
     dense step with g = +0.0 — as ``k_active = max(min(stop, m) - last[j],
     0)`` active steps plus at most one masked (eta = 0) step (the Option II
     mask is a prefix of ones, and a masked step is idempotent after one),
-    then stamps ``last[j] = m + 1``;
+    then stamps ``last[j] = m + 1``; :func:`catchup` is one launch for a
+    step's rows in all q blocks (:func:`catchup_plain` its plain version),
+    :func:`lazy_catchup` the one-block case;
   - :func:`lazy_touch_update`: the dense prox step at the touched features
     only, each feature's contributions added in flat order from 0.0
     (first-occurrence accumulation, the dense scatter's order);
@@ -40,6 +42,9 @@ floats.  ``launches`` counts each kernel's launches.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -134,6 +139,29 @@ def lazy_catchup_plain(
     has_masked = (m - ll) > k_active
     w[flat] = lazy_replay_plain(w[flat], z[flat], eta, k_active, has_masked, lam, lam1, lam2)
     last[flat] = m + 1
+    return w, last
+
+
+def catchup_plain(
+    indices: Sequence[torch.Tensor],  # per block: int32[N, nnz_l], local ids
+    bounds: Sequence[int],  # [q + 1]: block l holds the features [b_l, b_{l+1})
+    ids: torch.Tensor,  # int64[u] the step's sampled rows
+    w: torch.Tensor,  # [d], the q blocks' w concatenated; in place
+    last: torch.Tensor,  # int32[d]; in place
+    z: torch.Tensor,  # [d]
+    eta: float,
+    m: int,
+    stop: int,
+    lam: float,
+    lam1: float,
+    lam2: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of q blocks: :func:`lazy_catchup_plain` of each
+    block's sampled rows, block after block."""
+    for l, idx in enumerate(indices):
+        lo, hi = bounds[l], bounds[l + 1]
+        lazy_catchup_plain(w[lo:hi], last[lo:hi], z[lo:hi], idx[ids], eta, m, stop,
+                           lam, lam1, lam2)
     return w, last
 
 
@@ -243,6 +271,38 @@ def _launch(kernel: str, entry: str, dev: torch.device, *args) -> None:
     launches[kernel] += 1
 
 
+def catchup(
+    rows: _build.BlockRows,  # the q blocks' rows (ids only), on w's device
+    q: int,
+    ids: torch.Tensor | None,  # int64[u] sampled rows, or None: rows 0..u-1
+    u: int,
+    w: torch.Tensor,  # float32[d], the q blocks' w concatenated; in place
+    last: torch.Tensor,  # int32[d]; in place
+    z: torch.Tensor,  # float32[d]
+    eta: float,
+    m: int,
+    stop: int,
+    lam: float,
+    lam1: float,
+    lam2: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the catch-up kernel on the current stream, one launch for the
+    q blocks; returns (w, last).  The row ids must lie in ``[0, N)`` and
+    ``rows`` must come from live tensors (the kernel checks neither)."""
+    dev = _cuda_device("lazy_catchup", w)
+    _build.require_tensor("lazy_catchup", "w", w, torch.float32, dev, (None,))
+    (d,) = w.shape
+    _build.require_tensor("lazy_catchup", "last", last, torch.int32, dev, (d,))
+    _build.require_tensor("lazy_catchup", "z", z, torch.float32, dev, (d,))
+    if ids is not None:
+        _build.require_tensor("lazy_catchup", "ids", ids, torch.int64, dev, (u,))
+    _launch("lazy_catchup", "repro_lazy_catchup", dev,
+            ctypes.addressof(rows), q, None if ids is None else ids.data_ptr(), u,
+            w.data_ptr(), last.data_ptr(), z.data_ptr(), float(eta), int(m), int(stop),
+            float(lam), float(lam1), float(lam2))
+    return w, last
+
+
 def lazy_catchup(
     w: torch.Tensor,  # float32[d_block], updated in place
     last: torch.Tensor,  # int32[d_block], updated in place
@@ -255,15 +315,11 @@ def lazy_catchup(
     lam1: float,
     lam2: float,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the catch-up kernel on the current stream; returns (w, last)."""
-    u, nnz = _rows("lazy_catchup", w, indices)
-    (d,) = w.shape
-    _build.require_tensor("lazy_catchup", "last", last, torch.int32, w.device, (d,))
-    _build.require_tensor("lazy_catchup", "z_block", z, torch.float32, w.device, (d,))
-    _launch("lazy_catchup", "repro_lazy_catchup", w.device,
-            w.data_ptr(), last.data_ptr(), z.data_ptr(), indices.data_ptr(),
-            u, nnz, float(eta), int(m), int(stop), float(lam), float(lam1), float(lam2))
-    return w, last
+    """One block's catch-up through the kernel: the q = 1 case over the
+    rows ``indices``; returns (w, last)."""
+    dev = _cuda_device("lazy_catchup", w)
+    rows = _build.block_rows("lazy_catchup", (indices,), None, w.shape, dev)
+    return catchup(rows, 1, None, indices.shape[0], w, last, z, eta, m, stop, lam, lam1, lam2)
 
 
 def lazy_touch_update(

@@ -1,7 +1,9 @@
 """Public wrappers around the kernels, dispatching on the tensors' device.
 
 Port of ``repro.kernels.ops`` for the kernels of the FD-SVRG main path
-(with the port's own snapshot scatter), its lazy inner steps, the
+(with the port's own entries over all q blocks in one launch: the step's
+and the snapshot's margins, the step's catch-up and the snapshot
+scatter), its lazy inner steps, the
 dense-layout step and LM decode attention.  On a CUDA tensor each
 wrapper launches its hand-written kernel (or raises);
 on a CPU tensor it takes the kernel's plain PyTorch version.  There is
@@ -11,6 +13,8 @@ no fallback from one to the other.  The reference's TPU-only keywords
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -25,6 +29,7 @@ from repro_torch.kernels import prox_update as _prox
 from repro_torch.kernels import sparse_margin as _margin
 from repro_torch.kernels import svrg_update as _svrg
 from repro_torch.kernels.lazy_update import step_corrections
+from repro_torch.kernels.sparse_margin import StepRows
 
 
 def _route(t: torch.Tensor, kernel: str) -> bool:
@@ -41,10 +46,81 @@ def sparse_margins(
     values: torch.Tensor,  # float32[N, nnz_l]
     w_block: torch.Tensor,  # float32[d_block]
 ) -> torch.Tensor:  # float32[N]
-    """Fused gather-margin over one block's local CSR rows."""
+    """Fused gather-margin over one block's local CSR rows (the one-block
+    case of :func:`step_margins`' kernel)."""
     if _route(w_block, "sparse_margin"):
         return _margin.sparse_margin(indices, values, w_block)
     return _margin.sparse_margin_plain(indices, values, w_block)
+
+
+class StepMargins(NamedTuple):
+    s: torch.Tensor  # float32[u]: the margins, the partials summed in tree order
+    rows: tuple[tuple[torch.Tensor, torch.Tensor], ...]  # block l's [u, nnz_l] ids, values
+    parts: torch.Tensor | None  # float32[q, u] partials, if asked for
+
+
+def _w_blocks(block_data, w: torch.Tensor) -> list[torch.Tensor]:
+    bounds = block_data.partition.bounds
+    return [w[bounds[l]:bounds[l + 1]] for l in range(block_data.num_blocks)]
+
+
+def step_rows(block_data, u: int) -> StepRows:
+    """Room for one step's gathered rows of ``block_data`` (u rows a block)
+    on its device, for :func:`step_margins`' ``out``."""
+    return _margin.step_rows(block_data.nnz_budgets, u, block_data.device)
+
+
+def step_margins(
+    block_data,  # BlockCSR: q blocks of rows on w's device
+    ids: torch.Tensor,  # int64[u] the step's sampled rows
+    w: torch.Tensor,  # float32[d], the q blocks' w concatenated
+    *,
+    partials: bool = False,
+    out: StepRows | None = None,  # where the rows go (step_rows), reused step after step
+) -> StepMargins:
+    """The margins of a step's sampled rows (Alg 1 lines 9-10): each
+    block's rows gathered by ``ids``, their partial margins, and the sum in
+    tree order.  On the card ONE launch for all q blocks, which also writes
+    the gathered rows (into ``out``, else new buffers) and, with
+    ``partials``, the q partials; on the CPU the plain version, its rows
+    copied into ``out`` if given."""
+    if _route(w, "sparse_margin"):
+        q, u = block_data.num_blocks, ids.shape[0]
+        if w.shape != (block_data.dim,):
+            raise ValueError(f"sparse_margin: w has shape {tuple(w.shape)}, "
+                             f"expected ({block_data.dim},)")
+        if w.device != block_data.device:
+            raise ValueError(f"sparse_margin: w is on {w.device}, the rows on {block_data.device}")
+        if out is None:
+            out = step_rows(block_data, u)
+        parts = torch.empty((q, u), dtype=torch.float32, device=w.device) if partials else None
+        s = _margin.margins(block_data.block_rows(), q, w, ids, u, parts, out)
+        return StepMargins(s, out.blocks, parts)
+    s, parts, rows = _margin.margins_plain(block_data.indices, block_data.values,
+                                           _w_blocks(block_data, w), ids)
+    if out is not None:
+        for (ri, rv), (oi, ov) in zip(rows, out.blocks, strict=True):
+            oi.copy_(ri)
+            ov.copy_(rv)
+        rows = out.blocks
+    return StepMargins(s, tuple(rows), torch.stack(parts) if partials else None)
+
+
+def snapshot_margins(
+    block_data,  # BlockCSR: q blocks of rows on w's device
+    w: torch.Tensor,  # float32[d], the q blocks' w concatenated
+) -> torch.Tensor:  # float32[N]
+    """The snapshot's margins of every row (Alg 1 lines 3-4), the q
+    partials summed in tree order: on the card ONE launch for all q
+    blocks; on the CPU the plain version."""
+    if _route(w, "sparse_margin"):
+        if w.shape != (block_data.dim,) or w.device != block_data.device:
+            raise ValueError(f"sparse_margin: w {tuple(w.shape)} on {w.device} does not fit "
+                             f"rows of {block_data.dim} features on {block_data.device}")
+        return _margin.margins(block_data.block_rows(), block_data.num_blocks, w, None,
+                               block_data.num_instances)
+    return _margin.margins_plain(block_data.indices, block_data.values,
+                                 _w_blocks(block_data, w))[0]
 
 
 def snapshot_scatter(
@@ -95,21 +171,24 @@ def fused_block_prox_update(
     lam: float,  # smooth L2 coefficient (the classic 'l2' path)
     lam1: float = 0.0,  # L1 strength handled by the fused prox
     lam2: float = 0.0,  # elastic-net L2 strength handled by the fused prox
-) -> torch.Tensor:  # float32[d_block]
+    out: torch.Tensor | None = None,  # float32[d_block], may be w_block itself
+) -> torch.Tensor:  # float32[d_block]: out, or a new tensor
     """prox_{eta*g}(w - eta * (scatter(coef * x) + z + lam * w)) on one block.
 
     ``eta`` is a host float (never a device tensor, so the call does not
     wait on the card); like the reference's float32 operand it is rounded
-    to float32 first.  ``lam1 = lam2 = 0`` skips the prox stages.
+    to float32 first.  ``lam1 = lam2 = 0`` skips the prox stages.  With
+    ``out = w_block`` the block is updated in place.
     """
     eta = float(np.float32(eta))
     if _route(w_block, "prox_update"):
         return _prox.prox_update(
-            w_block, indices, values, coef, z_block, eta, lam, lam1, lam2
+            w_block, indices, values, coef, z_block, eta, lam, lam1, lam2, out
         )
-    return _prox.prox_update_plain(
+    new = _prox.prox_update_plain(
         w_block, indices, values, coef, z_block, eta, lam, lam1, lam2
     )
+    return new if out is None else out.copy_(new)
 
 
 # The lazy (delayed-decay) inner steps.  Each updates ``w_block`` (and
@@ -142,6 +221,37 @@ def lazy_block_catchup(
     return _lazy.lazy_catchup_plain(
         w_block, last_block, z_block, indices, eta, m, stop, lam, lam1, lam2
     )
+
+
+def lazy_step_catchup(
+    block_data,  # BlockCSR: q blocks of rows on w's device
+    ids: torch.Tensor,  # int64[u] the step's sampled rows
+    w: torch.Tensor,  # float32[d], the q blocks' w concatenated; in place
+    last: torch.Tensor,  # int32[d]; in place
+    z: torch.Tensor,  # float32[d]
+    eta: float,  # UNMASKED step size
+    m: int,  # current inner-step index
+    stop: int,  # number of active (unmasked) steps this epoch
+    *,
+    lam: float,
+    lam1: float = 0.0,
+    lam2: float = 0.0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact-lazy catch-up of a step's sampled rows in every block (each
+    block's ids replayed as :func:`lazy_block_catchup` replays them): on the
+    card ONE launch for all q blocks, on the CPU the plain version block
+    after block.  Returns (w, last)."""
+    eta = float(np.float32(eta))
+    if _route(w, "lazy_catchup"):
+        if w.device != block_data.device:
+            raise ValueError(f"lazy_catchup: w is on {w.device}, the rows on {block_data.device}")
+        if w.shape != (block_data.dim,):
+            raise ValueError(f"lazy_catchup: w has shape {tuple(w.shape)}, "
+                             f"expected ({block_data.dim},)")
+        return _lazy.catchup(block_data.block_rows(), block_data.num_blocks, ids,
+                             ids.shape[0], w, last, z, eta, m, stop, lam, lam1, lam2)
+    return _lazy.catchup_plain(block_data.indices, block_data.partition.bounds, ids, w, last,
+                               z, eta, m, stop, lam, lam1, lam2)
 
 
 def lazy_block_touch_update(
@@ -331,11 +441,17 @@ __all__ = [
     "lazy_block_flush",
     "lazy_block_proba_update",
     "lazy_block_touch_update",
+    "lazy_step_catchup",
     "loss_and_grad",
     "margins_dense",
     "reset_launch_counts",
+    "StepMargins",
+    "StepRows",
+    "snapshot_margins",
     "snapshot_scatter",
     "sparse_margins",
+    "step_margins",
+    "step_rows",
     "step_corrections",
     "svrg_dense_update",
 ]
