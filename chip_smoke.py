@@ -13,13 +13,18 @@ launches plus ``tree_order_sum`` at u = 1, 8 and 64 and R = N; the
 snapshot scatter, one launch for all 8 blocks, bit for bit against the
 CPU's ``index_add_`` in every block; the step's exact-lazy catch-up, one
 launch for all 8 blocks, bit for bit against the CPU's plain version at
-u = 1, 8 and 64, and timed at m = N = 19,954 beside its chain bound; the
+u = 1, 8 and 64, and timed at m = N = 19,954 beside its chain bound; a
+step's loss coefficients at u = 1, 8 and 64 and the snapshot's, one
+launch each, bit for bit against the PyTorch chain they replace; the
+epoch-end flush, one launch over all 1,355,191 features, bit for bit
+against 8 one-block launches and the CPU; the
 touched-pass kernels bit for bit against their plain
 versions on the CPU at u = 1, 8 and 64, the lazy ones also on a block
 of kdd2010's width), drives that main
 path through ``run_fdsvrg(use_kernels=True)`` with exact meter and
-launch-count checks (one margins launch a step and a snapshot, one
-catch-up launch a step; no torch gather of the sampled rows), holds two
+launch-count checks (one margins and one coefficient launch a step and a
+snapshot, one catch-up launch a step, one flush an epoch; no torch gather
+of the sampled rows, their labels or their snapshot margins), holds two
 short kernel-path runs bitwise equal and
 one against the plain path, runs the serial path, and scores the trained
 ``w`` through the margin kernel.
@@ -197,6 +202,61 @@ def device_kernels(torch, prof) -> tuple[dict[str, float], dict[str, int]]:
     return us, calls
 
 
+# The port's kernels in an FD-SVRG profile, by the name the trace gives
+# them (first match wins), and the launch counter of each.
+PORT_KERNELS = (("block_scatter_kernel", "block_scatter"), ("margins_kernel", "sparse_margin"),
+                ("coef_kernel", "logistic_grad"), ("range_kernel", "prox_update"),
+                ("entries_kernel<(anonymous namespace)::ProbaUpdate", "lazy_proba_update"),
+                ("entries_kernel", "lazy_touch_update"), ("lazy_catchup_kernel", "lazy_catchup"),
+                ("lazy_flush_kernel", "lazy_flush"))
+
+
+def lost_records(us: dict[str, float], calls: dict[str, int],
+                 launches: dict[str, int]) -> tuple[float, dict[str, list[int]]]:
+    """Each launched port counter's records in a trace beside its launches,
+    and an estimate of the device time (us) of the launches the trace lost:
+    each counter's mean per record, over the names it launches, times the
+    launches it lacks.  The estimate is reported apart and never added to
+    the trace's device time; a counter with launches and no record gets
+    none, and its phase traces again, then fails."""
+    per_counter: dict[str, list[float]] = {}
+    for name in us:
+        counter = next((c for key, c in PORT_KERNELS if key in name), None)
+        if counter is not None:
+            acc = per_counter.setdefault(counter, [0.0, 0])
+            acc[0] += us[name]
+            acc[1] += calls[name]
+    records = {c: [int(per_counter.get(c, [0.0, 0])[1]), launches[c]]
+               for c in dict.fromkeys(c for _, c in PORT_KERNELS) if launches.get(c, 0) > 0}
+    missing_us = sum(max(launches[c] - n, 0) * t / n for c, (t, n) in per_counter.items()
+                     if c in records)
+    return missing_us, records
+
+
+def traced_outer(torch, run, ops, tries: int = 3):
+    """``run()`` (one outer) under the profiler, from launch counts of 0:
+    its wall seconds, device us and records by kernel name, the estimate of
+    the lost records' us and each launched counter's records beside its
+    launches.  Traces again, up to ``tries`` times, while a launched
+    counter has no record; fails after that."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        ops.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        us, calls = device_kernels(torch, prof)
+        lost_us, records = lost_records(us, calls, ops.launch_counts())
+        if all(kept > 0 for kept, _ in records.values()):
+            break
+    require(all(kept > 0 for kept, _ in records.values()),
+            f"the trace kept no record of a launched kernel in {tries} tries: {records}")
+    return wall_s, us, calls, lost_us, records
+
+
 def device_ms(torch, fn, iters: int, before=None, kernels_seen=None) -> float:
     """Mean device time per call: the kernels ``fn`` launches, summed from
     a torch.profiler (CUPTI) trace after warm-up.  ``before`` runs before
@@ -304,7 +364,6 @@ def run() -> dict:
     from repro_torch.core.driver import draw_samples
     from repro_torch.core.fdsvrg import (
         SVRGConfig,
-        _divide,
         _full_grad_blocks,
         _inner_epoch,
         _lazy_inner_epoch,
@@ -518,17 +577,87 @@ def run() -> dict:
         multi_margin_rows[label] = row
         del csr, gidx, gval, buf
 
+    # A step's loss coefficients (ops.step_coef at u = 1, 8, 64) and the
+    # snapshot's (ops.snapshot_coef, R = N), from the margins at w_all: one
+    # launch each, bit for bit against the chain of PyTorch ops the path ran
+    # before (two gathers, the two derivatives, a subtraction, a true
+    # division), which is the plain version; timed beside it (device and
+    # host), with the one-launch floor above; finite at margins of +-100.
+    loss = losses.LOSSES[cfg_preset.loss]
+    s0_coef = ops.snapshot_margins(bd8, w_all)
+    coef_rows = {}
+    for label, ids in (("step u=1", sampled[:1]), ("step u=8", sampled[:8]),
+                       ("step u=64", ids64_m), ("snapshot R=N", None)):
+        if ids is None:
+            u_t = None
+
+            def fn():
+                return ops.snapshot_coef(bd8, s0_coef, loss)
+
+            def plain():
+                return logistic_mod.snapshot_coef_plain(s0_coef, bd8.labels, n, loss.dvalue)
+        else:
+            s_step = ops.step_margins(bd8, ids, w_all).s
+            u_t = torch.full((), float(ids.numel()), device=dev)
+
+            def fn(ids=ids, s_step=s_step, u_t=u_t):
+                return ops.step_coef(bd8, ids, s_step, s0_coef, u_t, loss)
+
+            def plain(ids=ids, s_step=s_step, u_t=u_t):
+                return logistic_mod.step_coef_plain(s_step, ids, bd8.labels, s0_coef, u_t,
+                                                    loss.dvalue)
+        ops.reset_launch_counts()
+        got = fn()
+        one_launch = ops.launch_counts()["logistic_grad"] == 1
+        want = plain()
+        bits = bool(torch.equal(got.view(torch.int32), want.view(torch.int32)))
+        rows_c = n if ids is None else ids.numel()
+        # The step reads its ids, margins, the rows' labels and s0 and
+        # writes coef; the snapshot reads s0 and the labels and writes the
+        # coefficients.  Two derivatives of 5 operations, a subtraction and
+        # a division a step's row (one derivative and a division a
+        # snapshot's), expf counted as one.
+        nbytes = rows_c * 12 if ids is None else rows_c * 24 + 4  # + the 0-dim u
+        b_ms, b_by = bound_ms(nbytes, rows_c * (6.0 if ids is None else 12.0))
+        row = {"phase": "kernel_check", "kernel": "logistic_grad",
+               "entry": "ops.snapshot_coef" if ids is None else "ops.step_coef",
+               "shape": f"{label} coefficients", "rows": rows_c,
+               "launches_per_call": 1 if one_launch else None, "bitwise_vs_chain": bits,
+               "n_differ": int(torch.count_nonzero(got != want)),
+               "max_abs_err": float(torch.max(torch.abs(got - want))),
+               "tolerance": "bitwise the PyTorch chain (the plain version) on the card",
+               "l2": "warm",
+               "kernel_ms": device_ms(torch, fn, 200),
+               "plain_ms": device_ms(torch, plain, 200),
+               "host_ms": host_ms(torch, fn, 200), "plain_host_ms": host_ms(torch, plain, 200),
+               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+               "floor_ms": margin_floor_ms, "floor": "one launch over one row of one entry"}
+        emit(row)
+        require(one_launch and bits, f"coefficients {label}: {row}")
+        coef_rows[label] = row
+    # Extreme margins: the coefficients stay finite and equal the chain.
+    s_ext = torch.tensor([100.0, -100.0, 1e4, -1e4] * 16, device=dev)
+    ids_ext = ids64_m
+    ext = ops.step_coef(bd8, ids_ext, s_ext, torch.full((n,), -100.0, device=dev),
+                        torch.full((), 64.0, device=dev), loss)
+    ext_want = logistic_mod.step_coef_plain(s_ext, ids_ext, bd8.labels,
+                                            torch.full((n,), -100.0, device=dev),
+                                            torch.full((), 64.0, device=dev), loss.dvalue)
+    require(bool(torch.all(torch.isfinite(ext))) and torch.equal(ext, ext_want),
+            f"coefficients at margins of +-100, +-1e4: {ext.tolist()} vs {ext_want.tolist()}")
+    emit({"phase": "coef_extremes", "margins": [100.0, -100.0, 1e4, -1e4], "finite": True,
+          "bitwise_vs_chain": True})
+
     # The snapshot scatter at the main path's first snapshot (w = 0): one
     # launch for all 8 blocks, whose z, block by block, equals the CPU's
     # flat-order index_add_ (local_scatter) of the same rows and
     # coefficients bit for bit; then each block alone (the q = 1 case of
     # the same kernel), bitwise again.
-    loss = losses.LOSSES[cfg_preset.loss]
     ops.reset_launch_counts()
     z_first, s_first = _full_grad_blocks(bd8, torch.zeros(data.dim, device=dev), loss, True)
     require(ops.launch_counts()["block_scatter"] == 1,
             f"the snapshot launched block_scatter {ops.launch_counts()['block_scatter']} times")
-    coeffs_first = _divide(loss.dvalue(s_first, bd8.labels), n)
+    coeffs_first = ops.snapshot_coef(bd8, s_first, loss)
     coeffs_cpu = coeffs_first.cpu()
     sm_clock_hz = float(card_line("clocks.max.sm").split()[0]) * 1e6
     snap_index = bd8.snapshot_index()
@@ -954,6 +1083,84 @@ def run() -> dict:
                      time_plain=False)
     del last_full
 
+    # 3b''. The epoch-end flush over the whole width (ops.lazy_block_flush
+    # over the 8 blocks' features: one launch) at the state the catch-up
+    # epoch above left, four regularizers, unmasked and with an Option II
+    # tail: bitwise the 8 one-block launches and the CPU's plain flush.
+    # Timed at the path's regularizer, unmasked, beside the 8 one-block
+    # launches and the card's plain version.  Three bounds: bytes
+    # (16 B a feature), the operations at 67 TFLOP/s, and issue: the
+    # replayed ops are rounded __f*_rn that never fuse, one issue slot
+    # each (step_flops less the hoisted 0 + z) on SMs x 128 lanes at the
+    # max SM clock.
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    last_state_cpu = last_state.cpu()
+    flush_rows = {}
+    for reg_name, (lam, lam1, lam2) in settings.items():
+        for case in ("unmasked", "masked"):
+            stop = m_ck if case == "unmasked" else 3 * m_ck // 4
+            tail = (eta, m_ck, stop, lam, lam1, lam2)
+            whole = w_state.clone()
+            ops.reset_launch_counts()
+            ops.lazy_block_flush(whole, last_state, z_all, eta, m_ck, stop, lam=lam, lam1=lam1,
+                                 lam2=lam2)
+            one_launch = ops.launch_counts()["lazy_flush"] == 1
+            blocks = w_state.clone()
+            for lo, hi in zip(bounds8[:-1], bounds8[1:]):
+                lazy_mod.lazy_flush(blocks[lo:hi], last_state[lo:hi], z_all[lo:hi], *tail)
+            cpu = w_state.cpu()
+            lazy_mod.lazy_flush_plain(cpu, last_state_cpu, z_all_cpu, *tail)
+            bits_blocks = bool(torch.equal(whole.view(torch.int32), blocks.view(torch.int32)))
+            bits_cpu = bitwise_vs_cpu(whole, cpu)
+            k = replay_steps(last_state, m_ck, stop)
+            steps = float(k.sum())
+            row = {"phase": "kernel_check", "kernel": "lazy_flush", "entry": "ops.lazy_block_flush",
+                   "reg": reg_name, "case": case, "shape": f"whole width, 8 blocks, after a "
+                                                          f"{m_ck}-step epoch",
+                   "d": data.dim, "stop": stop, "replayed_steps": steps,
+                   "launches_per_call": 1 if one_launch else None,
+                   "bitwise_vs_8_launches": bits_blocks, "bitwise_vs_cpu_plain": bits_cpu,
+                   "max_abs_err": float(torch.max(torch.abs(whole.cpu() - cpu))),
+                   "tolerance": "bitwise: 8 one-block launches, the CPU plain version"}
+            if reg_name == reg.name and case == "unmasked":
+                t = w_state.clone()
+
+                def restore(t=t):
+                    t.copy_(w_state)
+
+                def per_block(t=t, tail=tail):
+                    for lo, hi in zip(bounds8[:-1], bounds8[1:]):
+                        lazy_mod.lazy_flush(t[lo:hi], last_state[lo:hi], z_all[lo:hi], *tail)
+
+                b_ms, b_by = bound_ms(16 * data.dim, steps * step_flops(lam1, lam2))
+                issue_ops = step_flops(lam1, lam2) - 1.0
+                issue_ms = steps * issue_ops / (sms * 128 * sm_clock_hz) * 1e3
+                row.update({
+                    "l2": "warm",
+                    "kernel_ms": device_ms(torch, lambda t=t, tail=tail: lazy_mod.lazy_flush(
+                        t, last_state, z_all, *tail), 20, restore),
+                    "per_block_ms": device_ms(torch, per_block, 20, restore),
+                    "plain_ms": device_ms(torch, lambda t=t, tail=tail: lazy_mod.lazy_flush_plain(
+                        t, last_state, z_all, *tail), 3, restore),
+                    "host_ms": host_ms(torch, lambda t=t, tail=tail: ops.lazy_block_flush(
+                        t, last_state, z_all, tail[0], tail[1], tail[2], lam=lam, lam1=lam1,
+                        lam2=lam2), 20),
+                    "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+                    "bytes_bound_ms": 16 * data.dim / PEAK_BYTES_PER_S * 1e3,
+                    "flop_bound_ms": steps * step_flops(lam1, lam2) / PEAK_F32_FLOP_PER_S * 1e3,
+                    "issue_bound_ms": issue_ms, "issue_ops_per_step": issue_ops,
+                    "sms": sms, "sm_clock_max_mhz": sm_clock_hz / 1e6,
+                    "bounded_by_of_three": max(
+                        (("bytes", 16 * data.dim / PEAK_BYTES_PER_S * 1e3),
+                         ("operations", steps * step_flops(lam1, lam2) / PEAK_F32_FLOP_PER_S * 1e3),
+                         ("issue", issue_ms)), key=lambda kv: kv[1])[0]})
+                row["kernel_over_issue_bound"] = row["kernel_ms"] / issue_ms
+            emit(row)
+            require(one_launch and bits_blocks and bits_cpu,
+                    f"lazy_flush whole width {reg_name} {case}: {row}")
+            flush_rows[(reg_name, case)] = row
+    del last_state_cpu
+
     # 3c. The lazy touched pass on the widest block a preset gives,
     # kdd2010's d at q = 1 (29,890,095 features, 176x news20's block 0):
     # its grid is sized to the entries, so a step should cost what it
@@ -1018,6 +1225,7 @@ def run() -> dict:
     per_outer = 2 * Q * n + INNER_STEPS * 2 * Q * u
     expected_counts = expected_launches(
         ops, sparse_margin=(OUTERS + 1) + INNER_STEPS * OUTERS,
+        logistic_grad=(OUTERS + 1) + INNER_STEPS * OUTERS,
         block_scatter=OUTERS + 1, prox_update=Q * INNER_STEPS * OUTERS)
     objs = [h.objective for h in res.history]
     emit({"phase": "main_path", "entry": "run_fdsvrg", "config": cfg_preset.name,
@@ -1047,38 +1255,39 @@ def run() -> dict:
                         batch_size=u, seed=SEED)
     run_fdsvrg(None, part8, loss, reg, window, block_data=bd8)  # warm-up
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run_fdsvrg(None, part8, loss, reg, window, block_data=bd8)
-        torch.cuda.synchronize()
-        window_s = time.perf_counter() - t0
-    by_kernel, main_calls = device_kernels(torch, prof)
+    window_s, by_kernel, main_calls, main_lost_us, main_records = traced_outer(
+        torch, lambda: run_fdsvrg(None, part8, loss, reg, window, block_data=bd8), ops)
     busy_s = sum(by_kernel.values()) / 1e6
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
 
     # Launches per inner step, dense and exact lazy: one epoch of
     # LAUNCH_COUNT_STEPS steps from the first snapshot, profiled alone (the
-    # lazy epoch's flush adds 8 launches), and the torch gathers of sampled
-    # rows (a 2-D tensor indexed by a tensor) each epoch makes, counted
-    # through a TorchFunctionMode: none on the kernel path.
+    # lazy epoch's flush adds 1 launch), and the torch gathers each epoch
+    # makes, counted through a TorchFunctionMode: of sampled rows (a 2-D
+    # tensor indexed by a tensor) and of the rows' labels and snapshot
+    # margins (a 1-D tensor indexed by a 1-D tensor); none on the kernel
+    # path.
     from torch.overrides import TorchFunctionMode
 
     class RowGathers(TorchFunctionMode):
         def __init__(self):
             super().__init__()
             self.count = 0
+            self.count_1d = 0
 
         def __torch_function__(self, func, types, args=(), kwargs=None):
-            if func is torch.Tensor.__getitem__ and args[0].dim() == 2 and \
-                    isinstance(args[1], torch.Tensor):
-                self.count += 1
+            if func is torch.Tensor.__getitem__ and isinstance(args[1], torch.Tensor):
+                if args[0].dim() == 2:
+                    self.count += 1
+                elif args[0].dim() == 1 and args[1].dim() == 1:
+                    self.count_1d += 1
             return func(*args, **(kwargs or {}))
 
     z_p, s0_p = _full_grad_blocks(bd8, torch.zeros(data.dim, device=dev), loss, True)
     lc_samples = draw_samples(np.random.default_rng(SEED + 9), n, LAUNCH_COUNT_STEPS, u)
     lc_mask = np.ones(LAUNCH_COUNT_STEPS, dtype=np.float32)
     w_zero = torch.zeros(data.dim, device=dev)
-    per_step, gathers = {}, {}
+    per_step, gathers, gathers_1d = {}, {}, {}
     for mode in ("dense", "lazy", "dense plain"):
         def epoch(kernels=mode != "dense plain", lazy=mode == "lazy"):
             if lazy:
@@ -1092,22 +1301,36 @@ def run() -> dict:
         with RowGathers() as mode_counter:
             epoch()
         gathers[mode] = mode_counter.count
+        gathers_1d[mode] = mode_counter.count_1d
         if mode != "dense plain":
             with profile(activities=[ProfilerActivity.CUDA]) as lc_prof:
                 epoch()
                 torch.cuda.synchronize()
             per_step[mode] = sum(device_kernels(torch, lc_prof)[1].values()) / LAUNCH_COUNT_STEPS
     emit({"phase": "main_path_profile", "inner_steps": PROFILE_STEPS, "outers": 1,
-          "note": "one outer = 2 snapshots + the inner steps; profiler running (CUDA activity)",
+          "note": "one outer = 2 snapshots + the inner steps; profiler running (CUDA activity); "
+                  "device_busy_s is the trace's; lost_records_ms estimates the launches it "
+                  "lost, at their kernel's mean, and is not in it",
           "wall_s": window_s, "device_busy_s": busy_s,
           "device_idle_share": 1.0 - busy_s / window_s,
+          "lost_records_ms": main_lost_us / 1e3, "port_records_and_launches": main_records,
           "device_kernels": sum(main_calls.values()),
           "device_kernels_per_step_of_an_epoch": per_step,
-          "row_gathers_per_epoch": gathers, "epoch_steps": LAUNCH_COUNT_STEPS,
+          "row_gathers_per_epoch": gathers,
+          "label_and_s0_gathers_per_step": {k: v / LAUNCH_COUNT_STEPS
+                                            for k, v in gathers_1d.items()},
+          "epoch_steps": LAUNCH_COUNT_STEPS,
           "top_kernels_us_calls": [[k[:90], v, main_calls.get(k, 0)] for k, v in top]})
     require(gathers["dense"] == 0 and gathers["lazy"] == 0
             and gathers["dense plain"] == Q * LAUNCH_COUNT_STEPS * 2,
             f"torch gathers of the sampled rows: {gathers}")
+    require(gathers_1d["dense"] == 0 and gathers_1d["lazy"] == 0
+            and gathers_1d["dense plain"] == 2 * LAUNCH_COUNT_STEPS,
+            f"torch gathers of the rows' labels and snapshot margins: {gathers_1d}")
+    # 1 margins + 1 coefficient + Q prox_update launches a dense step; the
+    # lazy step adds the catch-up (and the epoch its flush and a fill).
+    require(per_step["dense"] <= Q + 3 and per_step["lazy"] <= Q + 4,
+            f"device kernels per step: {per_step}")
 
     # 5. Two short kernel-path runs, bitwise equal; one against the plain path.
     short = SVRGConfig(eta=cfg_preset.eta, inner_steps=PLAIN_CHECK_STEPS, outer_iters=1,
@@ -1138,6 +1361,7 @@ def run() -> dict:
     torch.cuda.synchronize()
     ser_counts = ops.launch_counts()
     ser_expected = expected_launches(ops, sparse_margin=2 + PLAIN_CHECK_STEPS,
+                                     logistic_grad=2 + PLAIN_CHECK_STEPS,
                                      block_scatter=2, prox_update=PLAIN_CHECK_STEPS)
     emit({"phase": "serial_path", "entry": "run_serial_svrg", "nnz_l": bd1.nnz_budgets[0],
           "inner_steps": PLAIN_CHECK_STEPS, "objectives": ser.objectives().tolist(),
@@ -1173,9 +1397,10 @@ def run() -> dict:
     lazy_counts = ops.launch_counts()
     lazy_expected = expected_launches(
         ops, sparse_margin=(OUTERS + 1) + INNER_STEPS * OUTERS,
+        logistic_grad=(OUTERS + 1) + INNER_STEPS * OUTERS,
         block_scatter=OUTERS + 1, lazy_catchup=INNER_STEPS * OUTERS,
         lazy_touch_update=Q * INNER_STEPS * OUTERS,
-        lazy_flush=Q * OUTERS)
+        lazy_flush=OUTERS)
     lazy_objs = [h.objective for h in lazy_res.history]
     lazy_rel = float(np.max(np.abs(np.array(lazy_objs) - np.array(objs)) / np.abs(objs)))
     lazy_w_bitwise = bool(torch.equal(lazy_res.w, res.w))
@@ -1239,6 +1464,7 @@ def run() -> dict:
     proba_wall = time.perf_counter() - t0
     proba_counts = ops.launch_counts()
     proba_expected = expected_launches(ops, sparse_margin=2 + INNER_STEPS,
+                                       logistic_grad=2 + INNER_STEPS,
                                        block_scatter=2, lazy_proba_update=Q * INNER_STEPS)
     dense_proba_eta = run_fdsvrg(None, part8, loss, reg, proba_cfg, block_data=bd8)
     proba_obj = proba_res.history[0].objective
@@ -1262,7 +1488,8 @@ def run() -> dict:
     torch.cuda.synchronize()
     lser_counts = ops.launch_counts()
     lser_expected = expected_launches(
-        ops, sparse_margin=2 + PLAIN_CHECK_STEPS, block_scatter=2, lazy_catchup=PLAIN_CHECK_STEPS,
+        ops, sparse_margin=2 + PLAIN_CHECK_STEPS, logistic_grad=2 + PLAIN_CHECK_STEPS,
+        block_scatter=2, lazy_catchup=PLAIN_CHECK_STEPS,
         lazy_touch_update=PLAIN_CHECK_STEPS, lazy_flush=1)
     lser_rel = float(np.max(np.abs(lser.objectives() - ser.objectives())
                             / np.abs(ser.objectives())))
@@ -1280,12 +1507,9 @@ def run() -> dict:
     # PROFILE_STEPS steps plus its two snapshots, no profiler).
     run_fdsvrg(None, part8, loss, reg, window, block_data=bd8, lazy_updates="exact")  # warm-up
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run_fdsvrg(None, part8, loss, reg, window, block_data=bd8, lazy_updates="exact")
-        torch.cuda.synchronize()
-        lazy_window_s = time.perf_counter() - t0
-    lazy_by_kernel, lazy_calls = device_kernels(torch, prof)
+    lazy_window_s, lazy_by_kernel, lazy_calls, lazy_lost_us, lazy_records = traced_outer(
+        torch, lambda: run_fdsvrg(None, part8, loss, reg, window, block_data=bd8,
+                                  lazy_updates="exact"), ops)
     lazy_busy_s = sum(lazy_by_kernel.values()) / 1e6
     walls: dict[str, list[float]] = {"dense": [], "lazy": []}
     for mode in ("dense", "lazy", "lazy", "dense"):
@@ -1296,9 +1520,11 @@ def run() -> dict:
         torch.cuda.synchronize()
         walls[mode].append(time.perf_counter() - t0)
     emit({"phase": "lazy_profile", "inner_steps": PROFILE_STEPS, "outers": 1,
-          "note": "one outer = 2 snapshots + the inner steps; profiler running (CUDA activity)",
+          "note": "one outer = 2 snapshots + the inner steps; profiler running (CUDA activity); "
+                  "lost_records_ms is not in device_busy_s",
           "wall_s": lazy_window_s, "device_busy_s": lazy_busy_s,
           "device_idle_share": 1.0 - lazy_busy_s / lazy_window_s,
+          "lost_records_ms": lazy_lost_us / 1e3, "port_records_and_launches": lazy_records,
           "top_kernels_us_calls": [[k[:90], v, lazy_calls.get(k, 0)] for k, v in
                                    sorted(lazy_by_kernel.items(), key=lambda kv: -kv[1])[:10]],
           "walls_s": walls,
@@ -1450,7 +1676,6 @@ def run() -> dict:
                         rows_d, cols, data.stride(0), data.data_ptr(), data.element_size(), sms))),
                     tolerance=f"|d| <= {MATVEC_RTOL:g} * sum_k |w_k * D_kn|")
 
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     # sum_k |w_k * D_kn| from the coalesced entries (D's nonzeros), so no
     # |D| of block size is allocated.
     col_scale = torch.zeros(n, device=dev).index_add_(
@@ -1723,9 +1948,10 @@ def run() -> dict:
                               "--gen", "16", "--layers", "4", "--dtype", "float32"], False)
     torch.cuda.empty_cache()
 
-    # 16. The kernels line.  Launches: sparse_margin, block_scatter and
-    # prox_update from the dense main path (sparse_margin's and lazy_catchup's
-    # times at one step over all 8 blocks, their launches on the path), the
+    # 16. The kernels line.  Launches: sparse_margin, logistic_grad,
+    # block_scatter and prox_update from the dense main path (sparse_margin's,
+    # logistic_grad's and lazy_catchup's times at one step over all 8
+    # blocks, lazy_flush's at one epoch's flush, their launches on the path), the
     # exact-lazy kernels from the lazy_exact_path
     # run, lazy_proba_update from the lazy_proba_path run, the dense-layout
     # kernels from the dense_step run, flash_decode from lm_decode_long.
@@ -1738,6 +1964,8 @@ def run() -> dict:
     step = prox_rows[(u, reg.name)]
     fd_label = f"qwen3-14b B = 1, length = {INPUT_SHAPES['decode_32k'].seq_len}"
     fd_row = decode_rows[fd_label]
+    coef_step = coef_rows[f"step u={u}"]
+    flush_row = flush_rows[(reg.name, "unmasked")]
 
     def lazy_entry(name, line, launches, shape):
         row = lazy_rows[(name, u, reg.name, "unmasked")]
@@ -1805,13 +2033,37 @@ def run() -> dict:
                   f"{reg.name} (bitwise the CPU)"},
         lazy_entry("lazy_touch_update", 177, lazy_counts["lazy_touch_update"],
                    f"block 0: d_l={d0}, u={u}, {reg.name}"),
-        lazy_entry("lazy_flush", 224, lazy_counts["lazy_flush"],
-                   f"block 0: d_l={d0}, after a {m_ck}-step epoch, {reg.name}"),
+        {"name": "lazy_flush", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/lazy_update.cu",
+         "replaces": "src/repro/kernels/lazy_update.py:224",
+         "launches": lazy_counts["lazy_flush"],
+         "max_abs_err": max(r["max_abs_err"] for r in flush_rows.values()),
+         "ms": flush_row["kernel_ms"], "host_ms": flush_row["host_ms"],
+         "plain_ms": flush_row["plain_ms"], "bound_ms": flush_row["bound_ms"],
+         "bound_by": flush_row["bound_by"], "issue_bound_ms": flush_row["issue_bound_ms"],
+         "per_block_ms": flush_row["per_block_ms"], "library_ms": None,
+         "block0_ms": lazy_rows[("lazy_flush", u, reg.name, "unmasked")]["kernel_ms"],
+         "shape": f"one epoch's flush over all 8 blocks, d={data.dim}, after a {m_ck}-step "
+                  f"epoch, {reg.name} (bitwise 8 one-block launches and the CPU)"},
         lazy_entry("lazy_proba_update", 266, proba_counts["lazy_proba_update"],
                    f"block 0: d_l={d0}, u={u}, {reg.name}"),
         dense_entry("fused_update", 73, f"block 0, u = {u}, lam = {reg.lam:g}, unmasked"),
         dense_entry("fd_matvec", 61, f"block 0 f32 [{d0} x {n}]"),
-        dense_entry("logistic_grad", 46, "step N = 1 float32"),
+        {"name": "logistic_grad", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/logistic_grad.cu",
+         "replaces": "src/repro/kernels/logistic_grad.py:46",
+         "launches": counts["logistic_grad"],
+         "max_abs_err": max(r["max_abs_err"] for r in coef_rows.values()),
+         "ms": coef_step["kernel_ms"], "host_ms": coef_step["host_ms"],
+         "plain_ms": coef_step["plain_ms"], "plain_host_ms": coef_step["plain_host_ms"],
+         "bound_ms": coef_step["bound_ms"], "bound_by": coef_step["bound_by"],
+         "floor_ms": coef_step["floor_ms"], "library_ms": None,
+         "snapshot_ms": coef_rows["snapshot R=N"]["kernel_ms"],
+         "snapshot_bound_ms": coef_rows["snapshot R=N"]["bound_ms"],
+         "dense_step_launches": dense_counts["logistic_grad"],
+         "dense_step_ms": dense_rows[("logistic_grad", "step N = 1 float32")]["kernel_ms"],
+         "shape": f"one step's coefficients, u={u} (the snapshot's: R={n}); bitwise the "
+                  f"PyTorch chain"},
         dense_entry("svrg_update", 49, f"d = {d0}, lam = {reg.lam:g}"),
         {"name": "flash_decode", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_decode.cu",

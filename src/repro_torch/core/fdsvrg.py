@@ -21,11 +21,13 @@ waits on the device).
 
 ``use_kernels=True`` (the default) routes the gather-margin (with the
 row gathers and the tree sum: one launch a step and one a snapshot for
-all q blocks), the snapshot scatter, the fused scatter + update + prox
-and the lazy steps (the catch-up one launch a step for all q blocks)
-through :mod:`repro_torch.kernels.ops`: the CUDA kernels on a CUDA
-device, their plain PyTorch versions on the CPU.  ``use_kernels=False``
-is the plain path written like the reference's jnp oracle.
+all q blocks), the loss coefficients (one launch a step and one a
+snapshot), the snapshot scatter, the fused scatter + update + prox and
+the lazy steps (the catch-up one launch a step for all q blocks, the
+flush one an epoch) through :mod:`repro_torch.kernels.ops`: the CUDA
+kernels on a CUDA device, their plain PyTorch versions on the CPU.
+``use_kernels=False`` is the plain path written like the reference's jnp
+oracle.
 """
 
 from __future__ import annotations
@@ -51,7 +53,7 @@ from repro_torch.data.block_csr import BlockCSR, local_margins, local_scatter
 from repro_torch.data.sparse import PaddedCSR, margins_rows, scatter_grad
 from repro_torch.dist import COSTS, ClusterModel, Collectives, SimBackend, tree_order_sum
 from repro_torch.dist.meter import tree_rounds
-from repro_torch.kernels import lazy_update, ops
+from repro_torch.kernels import lazy_update, logistic_grad, ops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,12 +70,6 @@ class SVRGConfig:
             raise ValueError(f"option must be 'I' or 'II', got {self.option!r}")
         if self.batch_size < 1:
             raise ValueError("batch_size >= 1 required")
-
-
-def _divide(x: torch.Tensor, n: int | float) -> torch.Tensor:
-    """``x / n`` as a true float32 division on every device (a CUDA tensor
-    divided by a Python scalar is multiplied by the reciprocal instead)."""
-    return x / torch.full((), float(n), dtype=x.dtype, device=x.device)
 
 
 # ---------------------------------------------------------------------------
@@ -96,7 +92,7 @@ def full_gradient(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Data part of the full gradient plus the margins s0 = w^T x_i."""
     s0 = margins_rows(data.indices, data.values, w)
-    coeffs = _divide(loss.dvalue(s0, data.labels), data.num_instances)
+    coeffs = logistic_grad.snapshot_coef_plain(s0, data.labels, data.num_instances, loss.dvalue)
     return scatter_grad(data.indices, data.values, coeffs, w.shape[0]), s0
 
 
@@ -141,13 +137,15 @@ def _full_grad_blocks(
     bd = block_data
     if use_kernels:
         s0 = ops.snapshot_margins(bd, w)
+        coeffs = ops.snapshot_coef(bd, s0, loss)
     else:
         bounds = _bounds(bd.block_dims)
         s0 = tree_order_sum([
             local_margins(bd.indices[l], bd.values[l], w[bounds[l]:bounds[l + 1]])
             for l in range(bd.num_blocks)
         ])
-    coeffs = _divide(loss.dvalue(s0, bd.labels), bd.num_instances)
+        coeffs = logistic_grad.snapshot_coef_plain(s0, bd.labels, bd.num_instances,
+                                                   loss.dvalue)
     return _snapshot_scatter(bd, coeffs, use_kernels), s0
 
 
@@ -197,8 +195,9 @@ def _inner_epoch(
     block.  The step size is ``float32(eta) * mask[m]``, taken on the host
     from numpy, and the sample ids go to the device once per epoch, so no
     step makes the host wait for the device.  On the kernel path one
-    launch gives the margins and the gathered rows of all q blocks, and
-    each block's update writes a copy of ``w0`` in place.
+    launch gives the margins and the gathered rows of all q blocks, one
+    the step's coefficients, and each block's update writes a copy of
+    ``w0`` in place.
     """
     bd = block_data
     device = w0.device
@@ -219,14 +218,14 @@ def _inner_epoch(
     z_blocks = [z_data[bounds[l]:bounds[l + 1]] for l in range(q)]
     for m in range(m_total):
         ids = ids_all[m]
-        y = bd.labels[ids]
         if use_kernels:
             s_m, rows, _ = ops.step_margins(bd, ids, w, out=rows_buf)
+            coef = ops.step_coef(bd, ids, s_m, s0, u_t, loss)
         else:
             rows = _gather_rows(bd, ids)
             # Pairwise summation mirroring Figure 5 (the FD == serial contract).
             s_m = tree_order_sum([local_margins(*rows[l], w_blocks[l]) for l in range(q)])
-        coef = (loss.dvalue(s_m, y) - loss.dvalue(s0[ids], y)) / u_t
+            coef = logistic_grad.step_coef_plain(s_m, ids, bd.labels, s0, u_t, loss.dvalue)
         for l in range(q):
             idx, val = rows[l]
             if use_kernels:
@@ -305,7 +304,8 @@ def _lazy_inner_epoch(
     one.  ``w0`` is copied once; the steps update the copy in place (the
     lazy kernels and their plain versions work in place).  On the kernel
     path a step's catch-up is one launch for all q blocks, and so are its
-    margins with the gathered rows.  Samples, mask
+    margins with the gathered rows; its coefficients are one launch, and
+    the epoch's flush one over the whole width.  Samples, mask
     and ``stop = sum(mask)`` come from numpy on the host, so on the kernel
     path no step waits on the device.  ``use_kernels=False`` mirrors the
     reference's jnp closures; its replay reads ``max(k_active)`` from the
@@ -392,7 +392,6 @@ def _lazy_inner_epoch(
 
     for m in range(m_total):
         ids = ids_all[m]
-        y = bd.labels[ids]
         # The margins gather only touched ids, which the catch-up first
         # materializes: coef is the dense epoch's, bit for bit.
         if use_kernels:
@@ -400,13 +399,14 @@ def _lazy_inner_epoch(
                 ops.lazy_step_catchup(bd, ids, w, last, z_data, eta32, m, stop,
                                       lam=smooth_lam, lam1=lam1, lam2=lam2)
             s_m, rows, _ = ops.step_margins(bd, ids, w, out=rows_buf)
+            coef = ops.step_coef(bd, ids, s_m, s0, u_t, loss)
         else:
             rows = _gather_rows(bd, ids)
             if exact:
                 for l in range(q):
                     plain_catchup(w_blocks[l], last_blocks[l], z_blocks[l], rows[l][0], m)
             s_m = tree_order_sum([local_margins(*rows[l], w_blocks[l]) for l in range(q)])
-        coef = (loss.dvalue(s_m, y) - loss.dvalue(s0[ids], y)) / u_t
+            coef = logistic_grad.step_coef_plain(s_m, ids, bd.labels, s0, u_t, loss.dvalue)
         for l in range(q):
             idx, val = rows[l]
             if use_kernels and exact:
@@ -426,14 +426,13 @@ def _lazy_inner_epoch(
                             eta_dev[m])
     if exact:
         # Epoch-end flush: snapshots, objectives and meters downstream see
-        # the fully materialized iterate.
-        for l in range(q):
-            if use_kernels:
-                ops.lazy_block_flush(
-                    w_blocks[l], last_blocks[l], z_blocks[l], eta32, m_total, stop,
-                    lam=smooth_lam, lam1=lam1, lam2=lam2,
-                )
-            else:
+        # the fully materialized iterate.  On the kernel path one launch
+        # over the whole width (each feature replays from its own last).
+        if use_kernels:
+            ops.lazy_block_flush(w, last, z_data, eta32, m_total, stop,
+                                 lam=smooth_lam, lam1=lam1, lam2=lam2)
+        else:
+            for l in range(q):
                 plain_flush(w_blocks[l], last_blocks[l], z_blocks[l])
     return w
 
@@ -677,7 +676,8 @@ def fdsvrg_worker_simulation(
             blocks = split(w)
             s0 = tree_order_sum([local_margins(*block_data.block(l), blocks[l])
                                  for l in range(q)])
-        coeffs0 = _divide(loss.dvalue(s0, labels), n)
+        coeffs0 = ops.snapshot_coef(block_data, s0, loss) if use_kernels else \
+            logistic_grad.snapshot_coef_plain(s0, labels, n, loss.dvalue)
         return _snapshot_scatter(block_data, coeffs0, use_kernels), s0
 
     lams = _lazy_lams(reg)
@@ -705,7 +705,6 @@ def fdsvrg_worker_simulation(
         rows_buf = ops.step_rows(block_data, u) if use_kernels else None
         for m in range(cfg.inner_steps):
             ids = ids_all[m]
-            y = labels[ids]
             # Replay each touched feature's deferred steps so the margin
             # read below sees the materialized values; lines 9-10: per-worker
             # partial margins, tree-summed (u scalars).
@@ -723,7 +722,8 @@ def fdsvrg_worker_simulation(
                                                        rows[l][0], eta_full, m, stop, *lams)
                 partial_m = [local_margins(*rows[l], blocks[l]) for l in range(q)]
             s_m = backend.all_reduce(partial_m, payload=u)
-            coef = (loss.dvalue(s_m, y) - loss.dvalue(s0[ids], y)) / u_t
+            coef = ops.step_coef(block_data, ids, s_m, s0, u_t, loss) if use_kernels else \
+                logistic_grad.step_coef_plain(s_m, ids, labels, s0, u_t, loss.dvalue)
             eta_m = float(np.float32(eta_eff * float(mask[m])))
             # Line 11: purely local prox update on each block (the prox is
             # elementwise, paper eq. 3, so no worker needs its peers).

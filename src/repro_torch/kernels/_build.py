@@ -68,6 +68,11 @@ _SIGNATURES = (
     # log2 of the threads along the columns, the load width.
     ("repro_fd_matvec", _I, (_P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _I, _P)),
     ("repro_logistic_grad", _I, (_P, _P, _P, _P, _I, _I, _P)),
+    # The main path's coefficients.  A step's: s_m, the int64 row ids,
+    # labels, s0, the 0-dim u, coef; u.  A snapshot's: s0, labels, coef; N,
+    # the divisor.
+    ("repro_logistic_step_coef", _I, (_P, _P, _P, _P, _P, _P, _I, _P)),
+    ("repro_logistic_snapshot_coef", _I, (_P, _P, _P, _I, _F, _P)),
     ("repro_svrg_update", _I, (_P, _P, _P, _P, _I, _F, _F, _P)),
     ("repro_fused_update", _I, (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P)),
     # Decode attention: q, k, v, the three split partials, out; B, Hkv,

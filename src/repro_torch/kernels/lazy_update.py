@@ -18,7 +18,9 @@ features of the sampled rows and defer the decay of the rest:
     only, each feature's contributions added in flat order from 0.0
     (first-occurrence accumulation, the dense scatter's order);
   - :func:`lazy_flush`: at epoch end every feature replays its remaining
-    deferred steps, so the block equals the dense iterate.
+    deferred steps, so the block equals the dense iterate; a feature's
+    replay reads only its own state, so one launch over the q blocks' w,
+    last and z concatenated is the q one-block flushes, bit for bit.
 
   Replay, not a closed form: ``(1 - eta*lam)**k * w`` rounds otherwise
   than k explicit steps, and the port's contract is that the exact lazy

@@ -16,10 +16,29 @@ the card: within 4 ulp of ``max(|plain|, 1)`` for both outputs (``expf`` /
 ``logf`` against PyTorch's ``exp`` / ``log``; ``log(1 + tiny)`` turns one
 ulp of the sum into an absolute error).  ``launches`` counts the kernel's
 launches.
+
+The FD-SVRG main path uses the derivative as a step's and a snapshot's
+coefficients, each one launch of the same source's second kernel
+(:func:`step_coef`, :func:`snapshot_coef`):
+
+    step:     coef[i]   = (dl(s_m[i], y) - dl(s0[ids[i]], y)) / u,  y = labels[ids[i]]
+    snapshot: coeffs[i] = dl(s0[i], labels[i]) / N
+
+with ``dl(s, y) = -y * sigmoid(-y * s)``, the port's logistic derivative
+(``core/losses.py``) op for op, not this kernel's ``ez / (e0 + ez)``.
+Their plain versions (:func:`step_coef_plain`, :func:`snapshot_coef_plain`,
+given the loss's ``dvalue``) are the chains of PyTorch ops the path ran
+before, with the divisions true float32 divisions by a 0-dim tensor; the
+kernels compute them op for op (PyTorch's CUDA sigmoid is ``1 / (1 +
+expf(-x))``), so on the card they are held bit for bit.  They count in
+``launches`` too.
 """
 
 from __future__ import annotations
 
+from typing import Callable
+
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -67,3 +86,83 @@ def logistic_grad(
     _build.check(rc, "logistic_grad")
     launches += 1
     return loss, dloss
+
+
+def step_coef_plain(
+    s_m: torch.Tensor,  # [u] the step's margins
+    ids: torch.Tensor,  # int64[u] the step's rows
+    labels: torch.Tensor,  # [N]
+    s0: torch.Tensor,  # [N] the snapshot's margins
+    u_t: torch.Tensor,  # 0-dim, u
+    dvalue: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],  # the loss's derivative
+) -> torch.Tensor:  # [u]
+    """The step's coefficients as PyTorch ops: two gathers, the two
+    derivatives, a subtraction and a true division by ``u_t``; with the
+    logistic loss's ``dvalue``, the kernel's function."""
+    y = labels[ids]
+    return (dvalue(s_m, y) - dvalue(s0[ids], y)) / u_t
+
+
+def snapshot_coef_plain(
+    s0: torch.Tensor,  # [N] the snapshot's margins
+    labels: torch.Tensor,  # [N]
+    n: int,
+    dvalue: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],  # the loss's derivative
+) -> torch.Tensor:  # [N]
+    """The snapshot's coefficients as PyTorch ops: the derivative, then a
+    true float32 division by ``n`` on every device (by a 0-dim tensor: a
+    CUDA tensor divided by a Python scalar is multiplied by the reciprocal
+    instead)."""
+    return dvalue(s0, labels) / torch.full((), float(n), dtype=s0.dtype, device=s0.device)
+
+
+def _launch_coef(entry: str, dev: torch.device, *args) -> None:
+    global launches
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        rc = getattr(lib, entry)(*args, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "logistic_grad")
+    launches += 1
+
+
+def step_coef(
+    s_m: torch.Tensor,  # float32[u]
+    ids: torch.Tensor,  # int64[u], each in [0, N) (not checked)
+    labels: torch.Tensor,  # float32[N]
+    s0: torch.Tensor,  # float32[N]
+    u_t: torch.Tensor,  # float32 0-dim, u: the kernel reads it on the card
+) -> torch.Tensor:  # float32[u]
+    """One launch for a step's coefficients on
+    ``torch.cuda.current_stream()``; raises on a CPU tensor, another dtype,
+    a shape mismatch or a non-contiguous tensor."""
+    if not s_m.is_cuda:
+        raise ValueError("logistic_grad: the CUDA kernel needs CUDA tensors")
+    dev = s_m.device
+    _build.require_tensor("logistic_grad", "s_m", s_m, torch.float32, dev, (None,))
+    (u,) = s_m.shape
+    _build.require_tensor("logistic_grad", "ids", ids, torch.int64, dev, (u,))
+    _build.require_tensor("logistic_grad", "labels", labels, torch.float32, dev, (None,))
+    _build.require_tensor("logistic_grad", "s0", s0, torch.float32, dev, labels.shape)
+    _build.require_tensor("logistic_grad", "u_t", u_t, torch.float32, dev, ())
+    coef = torch.empty((u,), dtype=torch.float32, device=dev)
+    _launch_coef("repro_logistic_step_coef", dev, s_m.data_ptr(), ids.data_ptr(),
+                 labels.data_ptr(), s0.data_ptr(), u_t.data_ptr(), coef.data_ptr(), u)
+    return coef
+
+
+def snapshot_coef(
+    s0: torch.Tensor,  # float32[N]
+    labels: torch.Tensor,  # float32[N]
+    n: int,  # the divisor N, rounded to float32 as the plain version's 0-dim tensor is
+) -> torch.Tensor:  # float32[N]
+    """One launch for a snapshot's coefficients; raises as
+    :func:`step_coef`."""
+    if not s0.is_cuda:
+        raise ValueError("logistic_grad: the CUDA kernel needs CUDA tensors")
+    dev = s0.device
+    _build.require_tensor("logistic_grad", "s0", s0, torch.float32, dev, (None,))
+    _build.require_tensor("logistic_grad", "labels", labels, torch.float32, dev, s0.shape)
+    coef = torch.empty(s0.shape, dtype=torch.float32, device=dev)
+    _launch_coef("repro_logistic_snapshot_coef", dev, s0.data_ptr(), labels.data_ptr(),
+                 coef.data_ptr(), s0.shape[0], float(np.float32(n)))
+    return coef

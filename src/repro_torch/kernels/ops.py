@@ -3,7 +3,8 @@
 Port of ``repro.kernels.ops`` for the kernels of the FD-SVRG main path
 (with the port's own entries over all q blocks in one launch: the step's
 and the snapshot's margins, the step's catch-up and the snapshot
-scatter), its lazy inner steps, the
+scatter; a step's and a snapshot's loss coefficients), its lazy inner
+steps (the epoch-end flush over the whole width in one launch), the
 dense-layout step and LM decode attention.  On a CUDA tensor each
 wrapper launches its hand-written kernel (or raises);
 on a CPU tensor it takes the kernel's plain PyTorch version.  There is
@@ -140,6 +141,42 @@ def snapshot_scatter(
         for idx, val, dim in zip(block_data.indices, block_data.values, block_data.block_dims)
     ]
     return torch.cat(z_blocks) if len(z_blocks) > 1 else z_blocks[0]
+
+
+def step_coef(
+    block_data,  # BlockCSR: its labels on s0's device
+    ids: torch.Tensor,  # int64[u] the step's sampled rows
+    s_m: torch.Tensor,  # float32[u] the step's margins
+    s0: torch.Tensor,  # float32[N] the snapshot's margins
+    u_t: torch.Tensor,  # float32 0-dim on s_m's device: u, the divisor
+    loss,  # MarginLoss
+) -> torch.Tensor:  # float32[u]
+    """A step's coefficients ``(dl(s_m, y) - dl(s0[ids], y)) / u_t`` with
+    ``y = labels[ids]``.  Chosen on ``loss.name``: the logistic loss on a
+    CUDA tensor takes ONE launch of the coefficient kernel (gathers, both
+    derivatives, subtraction and division by ``u_t`` inside), on the CPU
+    its plain version; the squared hinge, hinge and squared losses, for
+    which no TPU kernel exists, take the chain of PyTorch ops on every
+    device."""
+    labels = block_data.labels
+    if loss.name == "logistic" and _route(s_m, "logistic_grad"):
+        return _logistic.step_coef(s_m, ids, labels, s0, u_t)
+    return _logistic.step_coef_plain(s_m, ids, labels, s0, u_t, loss.dvalue)
+
+
+def snapshot_coef(
+    block_data,  # BlockCSR: its labels on s0's device
+    s0: torch.Tensor,  # float32[N] the snapshot's margins
+    loss,  # MarginLoss
+) -> torch.Tensor:  # float32[N]
+    """A snapshot's coefficients ``dl(s0, labels) / N`` (a true division),
+    routed as :func:`step_coef`: one launch for the logistic loss on the
+    card, its plain version on the CPU, the PyTorch chain for the other
+    losses."""
+    n = block_data.num_instances
+    if loss.name == "logistic" and _route(s0, "logistic_grad"):
+        return _logistic.snapshot_coef(s0, block_data.labels, n)
+    return _logistic.snapshot_coef_plain(s0, block_data.labels, n, loss.dvalue)
 
 
 def fused_block_update(
@@ -291,7 +328,10 @@ def lazy_block_flush(
     lam2: float = 0.0,
 ) -> torch.Tensor:
     """Epoch-end reconciliation: replay every feature's deferred steps so
-    the block equals the dense iterate after all M inner steps."""
+    the block equals the dense iterate after all M inner steps.  A
+    feature's replay reads only its own w, last and z, so one call over
+    the q blocks' tensors whole (the epoch's flush: on the card ONE
+    launch over the d features) is the q one-block calls bit for bit."""
     eta = float(np.float32(eta))
     if _route(w_block, "lazy_flush"):
         return _lazy.lazy_flush(
@@ -445,6 +485,7 @@ __all__ = [
     "loss_and_grad",
     "margins_dense",
     "reset_launch_counts",
+    "snapshot_coef",
     "StepMargins",
     "StepRows",
     "snapshot_margins",
@@ -452,6 +493,7 @@ __all__ = [
     "sparse_margins",
     "step_margins",
     "step_rows",
+    "step_coef",
     "step_corrections",
     "svrg_dense_update",
 ]

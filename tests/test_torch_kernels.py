@@ -242,6 +242,7 @@ def test_kernel_sources_declare_their_c_entry_points_and_origin():
     assert entries == ["repro_sparse_margin", "repro_block_scatter", "repro_prox_update", "repro_lazy_catchup",
                        "repro_lazy_touch_update", "repro_lazy_flush",
                        "repro_lazy_proba_update", "repro_fd_matvec", "repro_logistic_grad",
+                       "repro_logistic_step_coef", "repro_logistic_snapshot_coef",
                        "repro_svrg_update", "repro_fused_update", "repro_flash_decode"]
     for entry, _, argtypes in _build._SIGNATURES:
         src = next(t for t in text.values() if f'extern "C" int {entry}(' in t)

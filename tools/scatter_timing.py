@@ -27,12 +27,12 @@ import torch
 
 from repro_torch.configs.fdsvrg_linear import CONFIGS
 from repro_torch.core import losses
-from repro_torch.core.fdsvrg import _divide
 from repro_torch.core.partition import balanced
 from repro_torch.data import datasets
 from repro_torch.data.block_csr import BlockCSR, local_scatter
 from repro_torch.kernels import _build
 from repro_torch.kernels import block_scatter as scatter_mod
+from repro_torch.kernels import logistic_grad
 
 ITERS = 10
 
@@ -92,7 +92,8 @@ def main() -> None:
     bd = bd_cpu.to("cuda")
     n = data.num_instances
     loss = losses.LOSSES[cfg.loss]
-    coeffs = _divide(loss.dvalue(torch.zeros(n, device="cuda"), bd.labels), n)
+    coeffs = logistic_grad.snapshot_coef_plain(torch.zeros(n, device="cuda"), bd.labels, n,
+                                                loss.dvalue)
     coeffs_cpu = coeffs.cpu()
     want = torch.cat([local_scatter(bd_cpu.indices[l], bd_cpu.values[l], coeffs_cpu,
                                     bd.block_dims[l]) for l in range(8)]).numpy().view(np.int32)
