@@ -33,6 +33,17 @@ Then the lazy paths: ``run_fdsvrg(lazy_updates="exact")`` and
 meter and launch counts, the exact-lazy run held bitwise against the
 dense main path, one exact-lazy epoch held bitwise against the dense
 epoch on the kernel path, and a profile of the lazy epoch.
+Then the other solvers at full-width news20: the paper's baselines
+(``baseline_paths``: DSVRG at M = N/q = 2,494, SynSVRG at M = 500 with
+u = q, AsySVRG and PS-Lite at M = 2,000, on the q = 1 layout) and the
+rest of the update-rule family (``rule_paths``: FD-SAGA at M = 2,000,
+FD-BCD at M = 2q block steps, multi-output SVRG with k = 4 on the plain
+path at M = 500), 2 outers each, every line with its cut: exact meters
+(the §4.5 closed forms) and launch counts, two kernel-path runs bitwise
+equal with no ``index_add_`` (counted by a TorchFunctionMode), the plain
+twin within a stated tolerance (for multi-output, the k scalar
+kernel-path runs), falling objectives (finite for PS-Lite), steps/s and
+one profiled outer's idle share.
 Then the dense-layout step: block 0 densified into a [169,399 x 19,954]
 matrix, the composed step of ``tests/test_kernels.py:159`` (margins
 through ``margins_dense``, ``loss_and_grad``, ``svrg_dense_update``) run
@@ -311,6 +322,36 @@ def expected_launches(ops, **nonzero: int) -> dict[str, int]:
     return want
 
 
+def call_counter(torch):
+    """A TorchFunctionMode that counts, while it is on, the torch gathers of
+    sampled rows (a 2-D tensor indexed by a tensor), of the rows' labels and
+    snapshot margins (a 1-D tensor indexed by a 1-D tensor), and the
+    ``index_add_`` calls (on the card, the float atomics in an order that
+    changes from run to run, which the port's kernels replace)."""
+    from torch.overrides import TorchFunctionMode
+
+    index_add = (torch.Tensor.index_add_, torch.Tensor.index_add, torch.index_add)
+
+    class Counter(TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.count = 0
+            self.count_1d = 0
+            self.index_adds = 0
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func is torch.Tensor.__getitem__ and isinstance(args[1], torch.Tensor):
+                if args[0].dim() == 2:
+                    self.count += 1
+                elif args[0].dim() == 1 and args[1].dim() == 1:
+                    self.count_1d += 1
+            elif func in index_add:
+                self.index_adds += 1
+            return func(*args, **(kwargs or {}))
+
+    return Counter()
+
+
 def ulp(torch, x):
     """The float32 spacing above ``|x|``."""
     a = torch.abs(x.float())
@@ -342,6 +383,201 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S
     t_ops = flops / PEAK_F32_FLOP_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# The other solvers' paths, at full-width news20 and OUTERS outers each: the
+# paper's baselines on the q = 1 layout of the data, and the rest of the
+# update-rule family on the q = Q layout.  Depth is cut to these inner
+# steps per outer (the paper's M in brackets); DSVRG runs the paper's M,
+# N // Q (a machine's shard).
+SYN_STEPS = 500  # SynSVRG, u = q (N / q)
+ASYNC_STEPS = 2000  # AsySVRG and PS-Lite (N)
+# The async pair's step size (the reference's baseline tests' 0.1): at the
+# preset's 0.25, gradients up to q - 1 updates stale made AsySVRG's first
+# outer rise (0.6931 -> 0.7817) and its kernel and plain twins drift
+# 1.2e-3 apart on an H100 (PERF.md, Findings).
+ASYNC_ETA = 0.1
+SAGA_STEPS = 2000  # FD-SAGA (N / u)
+BCD_STEPS = 2 * Q  # FD-BCD: two cycles over the q blocks (q)
+MULTI_STEPS, MULTI_K = 500, 4  # multi-output SVRG, the plain path (N / u)
+
+
+def solver_paths(torch, ops, data, bd8, loss, reg, eta: float, obj_init: float) -> dict:
+    """Drive the baselines (``baseline_paths``) and FD-SAGA, FD-BCD and
+    multi-output SVRG (``rule_paths``) through their entry points, each
+    line with its cut, its exact meter and launch counts, two kernel-path
+    runs bitwise equal (the second under ``call_counter``: no
+    ``index_add_``), the plain twin within RUN_RTOL / RUN_W_RTOL, steps/s
+    and one profiled outer's idle share.  Multi-output runs the plain path
+    only (the reference's rule); its twin is the k scalar kernel-path runs,
+    one a column.  Returns each path's launch counts."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core import baselines
+    from repro_torch.core.fdsvrg import SVRGConfig
+    from repro_torch.dist import COSTS, SimBackend
+    from repro_torch.optim import update_rules as rules
+
+    n, d, nnz = data.num_instances, data.dim, data.nnz_max
+    snaps = OUTERS + 1
+    launches: dict[str, dict[str, int]] = {}
+
+    def config(steps, outers, step_size=eta):
+        return SVRGConfig(eta=step_size, inner_steps=steps, outer_iters=outers, seed=SEED)
+
+    def timed(make_run, use_kernels, outers):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = make_run(use_kernels, outers)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, ops.launch_counts()
+
+    def profiled(make_run, use_kernels, steps):
+        window_s, by_kernel, calls, lost_us, records = traced_outer(
+            torch, lambda: make_run(use_kernels, 1), ops)
+        busy_s = sum(by_kernel.values()) / 1e6
+        return {"profiled_outer_wall_s": window_s, "device_busy_s": busy_s,
+                "device_idle_share": 1.0 - busy_s / window_s,
+                "lost_records_ms": lost_us / 1e3,
+                "device_kernels_per_step_incl_snapshots": sum(calls.values()) / steps,
+                "top_kernels_us_calls": [[k[:90], v, calls.get(k, 0)] for k, v in
+                                         sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]]}
+
+    def check(phase, method, make_run, steps, want, per_outer, init, falls, cut, step_size=eta):
+        res, wall, counts = timed(make_run, True, OUTERS)
+        with call_counter(torch) as guard:
+            again = make_run(True, OUTERS)
+        with call_counter(torch) as plain_guard:
+            plain = make_run(False, OUTERS)
+        objs, po = res.objectives(), plain.objectives()
+        bitwise = bool(torch.equal(res.w, again.w)) and objs.tolist() == again.objectives().tolist()
+        obj_rel = float(np.max(np.abs(objs - po) / np.abs(po)))
+        w_err = float(torch.max(torch.abs(res.w - plain.w)))
+        w_scale = float(torch.max(torch.abs(plain.w)))
+        want_counts = expected_launches(ops, **want)
+        comm = [h.comm_scalars for h in res.history]
+        want_comm = [init + per_outer * (t + 1) for t in range(OUTERS)]
+        line = {"phase": phase, "method": method, "d": d, "N": n, "q": Q, "eta": step_size,
+                "reg": reg.name, "lam": reg.lam, "outers": OUTERS, "inner_steps": steps,
+                "cut": cut, "objective_init": obj_init, "objectives": objs.tolist(),
+                "grad_norms": [h.grad_norm for h in res.history], "comm_scalars": comm,
+                "expected_comm_scalars": want_comm, "launches": counts,
+                "expected_launches": want_counts, "kernel_runs_bitwise": bitwise,
+                "index_adds_kernel_path": guard.index_adds,
+                "index_adds_plain_path": plain_guard.index_adds,
+                "objective_plain": po.tolist(), "objective_rel_err": obj_rel,
+                "w_max_abs_err": w_err, "w_max_abs": w_scale,
+                "tolerance": f"two kernel runs bitwise; vs plain objective rtol {RUN_RTOL:g}, "
+                             f"max|dw| <= {RUN_W_RTOL:g} * max|w|",
+                "wall_s": wall, "inner_steps_per_s": OUTERS * steps / wall,
+                **profiled(make_run, True, steps)}
+        emit(line)
+        require(all(math.isfinite(o) for o in objs), f"{method}: non-finite objective {objs}")
+        require(not falls or (objs[0] < obj_init and objs[1] < objs[0]),
+                f"{method}: objective does not fall: {obj_init} -> {objs.tolist()}")
+        require(comm == want_comm and res.meter.total_scalars == want_comm[-1],
+                f"{method}: meter {comm} != {want_comm}")
+        require(counts == want_counts, f"{method}: launches {counts} != {want_counts}")
+        require(bitwise, f"{method}: two kernel-path runs differ")
+        require(guard.index_adds == 0, f"{method}: {guard.index_adds} index_add_ on the kernel path")
+        require(obj_rel <= RUN_RTOL and w_err <= RUN_W_RTOL * w_scale,
+                f"{method}: kernel path vs plain: objective rel {obj_rel}, w {w_err} of {w_scale}")
+        launches[method] = counts
+
+    # The baselines: q = 1 layout of the rows (455 wide), u = 1 unless said.
+    base_steps = {"dsvrg": n // Q, "synsvrg": SYN_STEPS,
+                  "asysvrg": ASYNC_STEPS, "pslite_sgd": ASYNC_STEPS}
+    runners = {"dsvrg": baselines.run_dsvrg, "synsvrg": baselines.run_syn_svrg,
+               "asysvrg": baselines.run_asy_svrg, "pslite_sgd": baselines.run_pslite_sgd}
+    for method, steps in base_steps.items():
+        step_size = eta if method in ("dsvrg", "synsvrg") else ASYNC_ETA
+
+        def make_run(use_kernels, outers, method=method, steps=steps, step_size=step_size):
+            return runners[method](data, Q, loss, reg, config(steps, outers, step_size),
+                                   use_kernels=use_kernels)
+
+        coef = 0 if method == "pslite_sgd" else OUTERS * steps
+        per_outer = COSTS.outer_cost(method, n=n, d=d, nnz=nnz, q=Q, inner_steps=steps)[1]
+        paper_m = {"dsvrg": f"N/q = {n // Q}", "synsvrg": f"N/q = {n // Q}"}.get(method,
+                                                                                 f"N = {n}")
+        check("baseline_paths", method, make_run, steps,
+              dict(sparse_margin=snaps + OUTERS * steps, logistic_grad=snaps + coef,
+                   block_scatter=snaps, prox_update=OUTERS * steps),
+              per_outer, 0, method != "pslite_sgd",
+              f"M = {steps} inner steps per outer (the paper's M = {paper_m}); "
+              f"{OUTERS} outers; the wall includes building the q = 1 layout", step_size)
+
+    # FD-SAGA and FD-BCD on the q = Q layout.
+    for method, steps in (("fd_saga", SAGA_STEPS), ("fd_bcd", BCD_STEPS)):
+        def make_run(use_kernels, outers, method=method, steps=steps):
+            ctx = rules.make_context(bd8, loss, reg, config(steps, outers),
+                                     backend=SimBackend(Q))
+            return rules.run_with_rule(rules.RULES[method](use_kernels=use_kernels), ctx)
+
+        per_outer = COSTS.outer_cost(method, n=n, d=d, nnz=nnz, q=Q, inner_steps=steps)[1]
+        init = COSTS.init_cost(method, n=n, nnz=nnz, q=Q)[1]
+        if method == "fd_saga":
+            want = dict(sparse_margin=snaps + OUTERS * steps, logistic_grad=snaps,
+                        block_scatter=snaps, prox_update=Q * OUTERS * steps,
+                        fused_update=Q * OUTERS * steps)
+            cut = f"M = {steps} inner steps per outer (the paper's M = N = {n}); {OUTERS} outers"
+        else:
+            want = dict(sparse_margin=snaps + OUTERS * steps,
+                        logistic_grad=snaps + OUTERS * steps,
+                        block_scatter=snaps + OUTERS * steps)
+            cut = f"M = {steps} block steps per outer (2 cycles; the paper's M = q); {OUTERS} outers"
+        check("rule_paths", method, make_run, steps, want, per_outer, init, True, cut)
+
+    # Multi-output SVRG, k = MULTI_K: column 0 the real labels, the others
+    # +-1 from a seed; its twin is the k scalar kernel-path runs.
+    y = np.random.default_rng(SEED + 11).choice([-1.0, 1.0], size=(n, MULTI_K))
+    y[:, 0] = bd8.labels.cpu().numpy()
+    y = torch.from_numpy(y.astype(np.float32)).to(bd8.device)
+    wide = dataclasses.replace(bd8, labels=y)
+
+    def multi_run(use_kernels, outers):
+        return rules.run_with_rule(rules.SVRGRule(use_kernels=False), rules.make_context(
+            wide, loss, reg, config(MULTI_STEPS, outers), backend=SimBackend(Q)))
+
+    res, wall, counts = timed(multi_run, False, OUTERS)
+    cols = [rules.run_with_rule(rules.SVRGRule(), rules.make_context(
+        dataclasses.replace(bd8, labels=y[:, j].contiguous()), loss, reg,
+        config(MULTI_STEPS, OUTERS), backend=SimBackend(Q))) for j in range(MULTI_K)]
+    objs = res.objectives()
+    col_mean = np.mean([c.objectives() for c in cols], axis=0)
+    obj_rel = float(np.max(np.abs(objs - col_mean) / np.abs(col_mean)))
+    w_err = max(float(torch.max(torch.abs(res.w[:, j] - c.w))) for j, c in enumerate(cols))
+    w_scale = max(float(torch.max(torch.abs(c.w))) for c in cols)
+    per_outer = (COSTS.fd_fullgrad(n=n, nnz=nnz, q=Q, k=MULTI_K).scalars
+                 + MULTI_STEPS * COSTS.fd_inner_step(nnz=nnz, q=Q, u=1, k=MULTI_K).scalars)
+    comm = [h.comm_scalars for h in res.history]
+    want_comm = [per_outer * (t + 1) for t in range(OUTERS)]
+    want_counts = expected_launches(ops)
+    emit({"phase": "rule_paths", "method": "svrg_multi_output", "k": MULTI_K, "d": d, "N": n,
+          "q": Q, "eta": eta, "reg": reg.name, "lam": reg.lam, "outers": OUTERS,
+          "inner_steps": MULTI_STEPS,
+          "cut": f"M = {MULTI_STEPS} inner steps per outer (the paper's M = N = {n}); "
+                 f"{OUTERS} outers; k = {MULTI_K} outputs",
+          "objective_init": obj_init, "objectives": objs.tolist(),
+          "objective_mean_of_scalar_runs": col_mean.tolist(), "objective_rel_err": obj_rel,
+          "w_max_abs_err": w_err, "w_max_abs": w_scale,
+          "tolerance": f"the plain path (index_add_ on the card) vs k scalar kernel-path "
+                       f"runs: objective rtol {RUN_RTOL:g}, max|dw| <= {RUN_W_RTOL:g} * max|w|",
+          "comm_scalars": comm, "expected_comm_scalars": want_comm, "launches": counts,
+          "expected_launches": want_counts, "wall_s": wall,
+          "inner_steps_per_s": OUTERS * MULTI_STEPS / wall,
+          **profiled(multi_run, False, MULTI_STEPS)})
+    require(all(math.isfinite(o) for o in objs) and objs[0] < obj_init and objs[1] < objs[0],
+            f"multi-output: objective does not fall: {obj_init} -> {objs.tolist()}")
+    require(comm == want_comm and res.meter.total_scalars == want_comm[-1],
+            f"multi-output: meter {comm} != {want_comm}")
+    require(counts == want_counts, f"multi-output: launches {counts} (the plain path)")
+    require(obj_rel <= RUN_RTOL and w_err <= RUN_W_RTOL * w_scale,
+            f"multi-output vs scalar runs: objective rel {obj_rel}, w {w_err} of {w_scale}")
+    return launches
 
 
 def run() -> dict:
@@ -1262,32 +1498,14 @@ def run() -> dict:
 
     # Launches per inner step, dense and exact lazy: one epoch of
     # LAUNCH_COUNT_STEPS steps from the first snapshot, profiled alone (the
-    # lazy epoch's flush adds 1 launch), and the torch gathers each epoch
-    # makes, counted through a TorchFunctionMode: of sampled rows (a 2-D
-    # tensor indexed by a tensor) and of the rows' labels and snapshot
-    # margins (a 1-D tensor indexed by a 1-D tensor); none on the kernel
+    # lazy epoch's flush adds 1 launch), and the torch gathers and
+    # index_add_ calls each epoch makes (call_counter); none on the kernel
     # path.
-    from torch.overrides import TorchFunctionMode
-
-    class RowGathers(TorchFunctionMode):
-        def __init__(self):
-            super().__init__()
-            self.count = 0
-            self.count_1d = 0
-
-        def __torch_function__(self, func, types, args=(), kwargs=None):
-            if func is torch.Tensor.__getitem__ and isinstance(args[1], torch.Tensor):
-                if args[0].dim() == 2:
-                    self.count += 1
-                elif args[0].dim() == 1 and args[1].dim() == 1:
-                    self.count_1d += 1
-            return func(*args, **(kwargs or {}))
-
     z_p, s0_p = _full_grad_blocks(bd8, torch.zeros(data.dim, device=dev), loss, True)
     lc_samples = draw_samples(np.random.default_rng(SEED + 9), n, LAUNCH_COUNT_STEPS, u)
     lc_mask = np.ones(LAUNCH_COUNT_STEPS, dtype=np.float32)
     w_zero = torch.zeros(data.dim, device=dev)
-    per_step, gathers, gathers_1d = {}, {}, {}
+    per_step, gathers, gathers_1d, index_adds = {}, {}, {}, {}
     for mode in ("dense", "lazy", "dense plain"):
         def epoch(kernels=mode != "dense plain", lazy=mode == "lazy"):
             if lazy:
@@ -1298,10 +1516,11 @@ def run() -> dict:
 
         epoch()
         torch.cuda.synchronize()
-        with RowGathers() as mode_counter:
+        with call_counter(torch) as mode_counter:
             epoch()
         gathers[mode] = mode_counter.count
         gathers_1d[mode] = mode_counter.count_1d
+        index_adds[mode] = mode_counter.index_adds
         if mode != "dense plain":
             with profile(activities=[ProfilerActivity.CUDA]) as lc_prof:
                 epoch()
@@ -1319,6 +1538,7 @@ def run() -> dict:
           "row_gathers_per_epoch": gathers,
           "label_and_s0_gathers_per_step": {k: v / LAUNCH_COUNT_STEPS
                                             for k, v in gathers_1d.items()},
+          "index_adds_per_epoch": index_adds,
           "epoch_steps": LAUNCH_COUNT_STEPS,
           "top_kernels_us_calls": [[k[:90], v, main_calls.get(k, 0)] for k, v in top]})
     require(gathers["dense"] == 0 and gathers["lazy"] == 0
@@ -1327,6 +1547,9 @@ def run() -> dict:
     require(gathers_1d["dense"] == 0 and gathers_1d["lazy"] == 0
             and gathers_1d["dense plain"] == 2 * LAUNCH_COUNT_STEPS,
             f"torch gathers of the rows' labels and snapshot margins: {gathers_1d}")
+    require(index_adds["dense"] == 0 and index_adds["lazy"] == 0
+            and index_adds["dense plain"] == Q * LAUNCH_COUNT_STEPS,
+            f"index_add_ calls of an epoch: {index_adds}")
     # 1 margins + 1 coefficient + Q prox_update launches a dense step; the
     # lazy step adds the catch-up (and the epoch its flush and a fill).
     require(per_step["dense"] <= Q + 3 and per_step["lazy"] <= Q + 4,
@@ -1529,6 +1752,9 @@ def run() -> dict:
                                    sorted(lazy_by_kernel.items(), key=lambda kv: -kv[1])[:10]],
           "walls_s": walls,
           "inner_steps_per_s": {k: PROFILE_STEPS / (sum(v) / len(v)) for k, v in walls.items()}})
+
+    # 12a-b. The baselines and the rest of the update-rule family.
+    solver_launches = solver_paths(torch, ops, data, bd8, loss, reg, cfg_preset.eta, obj_init)
 
     # 13. The dense-layout step: the composed step of tests/test_kernels.py:159
     # at full width.  Block 0 densified: D[id, row] holds the row's values at
@@ -1967,6 +2193,10 @@ def run() -> dict:
     coef_step = coef_rows[f"step u={u}"]
     flush_row = flush_rows[(reg.name, "unmasked")]
 
+    def by_path(kernel):
+        """The kernel's launches on each solver path that launched it."""
+        return {m: c[kernel] for m, c in solver_launches.items() if c[kernel]}
+
     def lazy_entry(name, line, launches, shape):
         row = lazy_rows[(name, u, reg.name, "unmasked")]
         return {"name": name, "route": "cuda",
@@ -1982,7 +2212,8 @@ def run() -> dict:
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{name}.cu",
                 "replaces": f"src/repro/kernels/{name}.py:{line}",
-                "launches": dense_counts[name], "max_abs_err": row["max_abs_err"],
+                "launches": dense_counts[name], "launches_by_path": by_path(name),
+                "max_abs_err": row["max_abs_err"],
                 "ms": row["kernel_ms"], "host_ms": row["host_ms"], "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                 "library_ms": row["library_ms"], "shape": shape}
@@ -1991,6 +2222,7 @@ def run() -> dict:
          "source": "src/repro_torch/kernels/csrc/sparse_margin.cu",
          "replaces": "src/repro/kernels/sparse_margin.py:56",
          "launches": counts["sparse_margin"],
+         "launches_by_path": by_path("sparse_margin"),
          "max_abs_err": max(multi_margin_rows[k]["max_abs_err"] for k in multi_margin_rows),
          "ms": margin_step["kernel_ms"], "host_ms": margin_step["host_ms"],
          "plain_ms": margin_step["plain_ms"], "bound_ms": margin_step["bound_ms"],
@@ -2007,6 +2239,7 @@ def run() -> dict:
                  ".at[].add (no pallas_call); one launch for all 8 blocks; library_ms is "
                  "the 8 index_add_ calls",
          "launches": counts["block_scatter"],
+         "launches_by_path": by_path("block_scatter"),
          "max_abs_err": max(r["max_abs_err"] for r in scatter_rows),
          "ms": snapshot["kernel_ms"], "host_ms": snapshot["host_ms"],
          "plain_ms": snapshot["plain_ms"], "bound_ms": snapshot["bound_ms"],
@@ -2016,7 +2249,8 @@ def run() -> dict:
         {"name": "prox_update", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/prox_update.cu",
          "replaces": "src/repro/kernels/prox_update.py:84",
-         "launches": counts["prox_update"], "max_abs_err": step["max_abs_err"],
+         "launches": counts["prox_update"],
+         "launches_by_path": by_path("prox_update"), "max_abs_err": step["max_abs_err"],
          "ms": step["kernel_ms"], "host_ms": step["host_ms"], "plain_ms": step["plain_ms"],
          "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
          "library_ms": None, "shape": f"inner step block 0: d_l={d0}, u={u}, {reg.name}"},
@@ -2053,6 +2287,7 @@ def run() -> dict:
          "source": "src/repro_torch/kernels/csrc/logistic_grad.cu",
          "replaces": "src/repro/kernels/logistic_grad.py:46",
          "launches": counts["logistic_grad"],
+         "launches_by_path": by_path("logistic_grad"),
          "max_abs_err": max(r["max_abs_err"] for r in coef_rows.values()),
          "ms": coef_step["kernel_ms"], "host_ms": coef_step["host_ms"],
          "plain_ms": coef_step["plain_ms"], "plain_host_ms": coef_step["plain_host_ms"],

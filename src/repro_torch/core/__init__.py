@@ -1,1 +1,3 @@
-"""FD-SVRG (paper Algorithm 1), serial SVRG, and the outer-loop harness."""
+"""FD-SVRG (paper Algorithm 1), serial SVRG, the paper's instance-distributed
+baselines (``baselines``: DSVRG, SynSVRG, AsySVRG, PS-Lite SGD), and the
+outer-loop harness."""

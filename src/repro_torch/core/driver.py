@@ -148,14 +148,17 @@ def resolve_init_w(
     dim: int,
     dtype: torch.dtype,
     device: torch.device,
+    num_outputs: int = 1,
 ) -> torch.Tensor:
     """Zeros unless the caller warm-starts, always in the data's dtype and
-    on the run's device."""
+    on the run's device.  ``num_outputs > 1`` is the multi-output shape
+    ``w ∈ R^{d×k}``; 1 keeps the 1-D iterate."""
+    shape = (dim,) if num_outputs == 1 else (dim, num_outputs)
     if init_w is None:
-        return torch.zeros((dim,), dtype=dtype, device=device)
+        return torch.zeros(shape, dtype=dtype, device=device)
     init_w = torch.as_tensor(init_w).to(dtype=dtype, device=device)
-    if tuple(init_w.shape) != (dim,):
-        raise ValueError(f"init_w has shape {tuple(init_w.shape)}, expected {(dim,)}")
+    if tuple(init_w.shape) != shape:
+        raise ValueError(f"init_w has shape {tuple(init_w.shape)}, expected {shape}")
     return init_w
 
 

@@ -243,6 +243,16 @@ def _inner_epoch(
     return torch.cat(w_blocks) if q > 1 else w_blocks[0]
 
 
+def _check_kernel_dtype(dtype: torch.dtype, use_kernels: bool) -> None:
+    """The kernels take float32: other data on the kernel path raises
+    (``use_kernels=False`` keeps the data's dtype, as the reference does)."""
+    if use_kernels and dtype != torch.float32:
+        raise ValueError(
+            f"use_kernels=True runs float32 data only, got {dtype}; pass "
+            "use_kernels=False to keep it"
+        )
+
+
 # ---------------------------------------------------------------------------
 # Lazy (delayed-decay) inner epoch — O(u * nnz_l) per step
 # ---------------------------------------------------------------------------

@@ -214,7 +214,14 @@ def _count_cols(indices: np.ndarray, values: np.ndarray, dim: int) -> np.ndarray
 def local_margins(
     indices: torch.Tensor, values: torch.Tensor, w_block: torch.Tensor
 ) -> torch.Tensor:
-    """s^(l)_i = w^(l)T x^(l)_i from block-LOCAL padded rows ([R, nnz_l])."""
+    """s^(l)_i = w^(l)T x^(l)_i from block-LOCAL padded rows ([R, nnz_l]).
+
+    A ``[dim_l, k]`` block (k outputs) gives ``[R, k]`` margins, column
+    by column the 1-D case (the reference vmaps it over the outputs): each
+    output's rows are summed along a contiguous last axis, as there.
+    """
+    if w_block.dim() == 2:
+        return torch.sum(w_block.t()[:, indices] * values, dim=-1).t()
     return torch.sum(w_block[indices] * values, dim=-1)
 
 
@@ -226,10 +233,16 @@ def local_scatter(
 ) -> torch.Tensor:
     """sum_i coeffs_i * x^(l)_i as a dense block vector, local ids only.
 
+    ``[R, k]`` coefficients (k outputs) give a ``[block_dim, k]`` block.
     On the CPU, ``index_add_`` accumulates in flat order and equals the
     reference's ``.at[].add`` bit for bit.
     """
     flat_idx = indices.reshape(-1)
+    if coeffs.dim() == values.dim():
+        k = coeffs.shape[-1]
+        flat_val = (values[..., None] * coeffs[:, None, :]).reshape(-1, k)
+        out = torch.zeros((block_dim, k), dtype=values.dtype, device=values.device)
+        return out.index_add_(0, flat_idx, flat_val)
     flat_val = (values * coeffs[..., None]).reshape(-1)
     out = torch.zeros((block_dim,), dtype=values.dtype, device=values.device)
     return out.index_add_(0, flat_idx, flat_val)

@@ -49,12 +49,14 @@ def fused_update(
     z_block: torch.Tensor,  # float32[d_block]
     eta: float,
     lam: float,
-) -> torch.Tensor:  # float32[d_block], a new tensor
+    out: torch.Tensor | None = None,  # float32[d_block]; may be w_block itself
+) -> torch.Tensor:  # float32[d_block]: out, or a new tensor
     """Launch the CUDA kernel on ``torch.cuda.current_stream()``.
 
     Raises on a CPU tensor, another dtype, a shape mismatch or a
     non-contiguous tensor.  The floats travel by value, so the call never
-    waits on the card.
+    waits on the card.  ``out = w_block`` updates the block in place
+    (each feature's owner reads ``w[j]`` before it writes ``out[j]``).
     """
     global launches
     if not w_block.is_cuda:
@@ -66,7 +68,10 @@ def fused_update(
     _build.require_tensor("fused_update", "z_block", z_block, torch.float32, dev, (d,))
     _build.require_tensor("fused_update", "values", values, torch.float32, dev, (u, nnz))
     _build.require_tensor("fused_update", "coef", coef, torch.float32, dev, (u,))
-    out = torch.empty_like(w_block)
+    if out is None:
+        out = torch.empty_like(w_block)
+    else:
+        _build.require_tensor("fused_update", "out", out, torch.float32, dev, (d,))
     lib = _build.load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -143,6 +143,22 @@ def snapshot_scatter(
     return torch.cat(z_blocks) if len(z_blocks) > 1 else z_blocks[0]
 
 
+def block_scatter(
+    indices: torch.Tensor,  # int32[N, nnz_l], block-LOCAL ids
+    values: torch.Tensor,  # float32[N, nnz_l]
+    coeffs: torch.Tensor,  # float32[N]
+    block_dim: int,
+    index: _scatter.ScatterIndex,  # scatter_index of these rows, on their device
+) -> torch.Tensor:  # float32[block_dim]
+    """One block's scatter of every row, ``sum_i coeffs_i * x_i``, each id's
+    terms added in flat order: on the card ONE launch of the snapshot
+    scatter's kernel over ``index`` (the one-block case of
+    :func:`snapshot_scatter`); on the CPU the plain version."""
+    if _route(coeffs, "block_scatter"):
+        return _scatter.block_scatter(values, coeffs, index)
+    return _scatter.block_scatter_plain(indices, values, coeffs, block_dim)
+
+
 def step_coef(
     block_data,  # BlockCSR: its labels on s0's device
     ids: torch.Tensor,  # int64[u] the step's sampled rows
@@ -188,13 +204,16 @@ def fused_block_update(
     eta: float,  # host scalar (eta * option mask), rounded to float32 here
     *,
     lam: float,
-) -> torch.Tensor:  # float32[d_block]
+    out: torch.Tensor | None = None,  # float32[d_block], may be w_block itself
+) -> torch.Tensor:  # float32[d_block]: out, or a new tensor
     """w - eta * (scatter(coef * x) + z + lam * w) on one block (L2
-    family; lam = 0 covers the unregularized path)."""
+    family; lam = 0 covers the unregularized path).  With ``out =
+    w_block`` the block is updated in place."""
     eta = float(np.float32(eta))
     if _route(w_block, "fused_update"):
-        return _fused.fused_update(w_block, indices, values, coef, z_block, eta, lam)
-    return _fused.fused_update_plain(w_block, indices, values, coef, z_block, eta, lam)
+        return _fused.fused_update(w_block, indices, values, coef, z_block, eta, lam, out)
+    new = _fused.fused_update_plain(w_block, indices, values, coef, z_block, eta, lam)
+    return new if out is None else out.copy_(new)
 
 
 def fused_block_prox_update(
@@ -472,6 +491,7 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
+    "block_scatter",
     "decode_attention",
     "decode_attention_batched",
     "fused_block_prox_update",

@@ -209,7 +209,9 @@ def test_unported_options_raise():
     import dataclasses
 
     multi = dataclasses.replace(bd, labels=torch.stack([bd.labels, bd.labels], 1))
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # Multi-output labels run the plain path only (the kernels have no
+    # trailing output axis): the default use_kernels=True refuses them.
+    with pytest.raises(ValueError, match="multi-output"):
         t_run_serial(None, t_losses.logistic, t_losses.l2(1e-3), tcfg, block_data=multi,
                      device="cpu")
     with pytest.raises(ValueError, match="q=1 layout"):
