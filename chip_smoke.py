@@ -37,13 +37,14 @@ Then the other solvers at full-width news20: the paper's baselines
 (``baseline_paths``: DSVRG at M = N/q = 2,494, SynSVRG at M = 500 with
 u = q, AsySVRG and PS-Lite at M = 2,000, on the q = 1 layout) and the
 rest of the update-rule family (``rule_paths``: FD-SAGA at M = 2,000,
-FD-BCD at M = 2q block steps, multi-output SVRG with k = 4 on the plain
-path at M = 500), 2 outers each, every line with its cut: exact meters
-(the §4.5 closed forms) and launch counts, two kernel-path runs bitwise
-equal with no ``index_add_`` (counted by a TorchFunctionMode), the plain
-twin within a stated tolerance (for multi-output, the k scalar
-kernel-path runs), falling objectives (finite for PS-Lite), steps/s and
-one profiled outer's idle share.
+FD-BCD at M = 2q block steps, multi-output SVRG with k = 4 at M = 500,
+its kernel route k scalar kernel-path epochs), 2 outers each, every line
+with its cut: exact meters (the §4.5 closed forms) and launch counts,
+two kernel-path runs bitwise equal with no ``index_add_`` (counted by a
+TorchFunctionMode), the plain twin within a stated tolerance (for
+multi-output also each column bit for bit its scalar kernel-path run),
+falling objectives (finite for PS-Lite), steps/s and one profiled
+outer's idle share.
 Then the dense-layout step: block 0 densified into a [169,399 x 19,954]
 matrix, the composed step of ``tests/test_kernels.py:159`` (margins
 through ``margins_dense``, ``loss_and_grad``, ``svrg_dense_update``) run
@@ -64,6 +65,24 @@ shapes (up to 524,288 positions) and the reference test's; then
 tolerance, and a profile of one long decode step; then the batch-4 run
 again in float32 at 4 layers (``lm_serve_f32``), whose twin separates the
 kernel's error from bfloat16's.
+Then the data path, serving, faults and checkpoints at full-width news20:
+``ingest_path`` writes the rows as LibSVM text, streams them into the q = 8
+layout (``LibSVMSource`` -> ``stream_block_csr`` at 4,096- and 997-row
+chunks, each block's ``stream_block_slab`` and a ``get_or_build`` miss in
+worker processes at once, then the hit), all byte for byte the one-shot
+``from_padded(load_libsvm(...))``, and trains on the streamed layout,
+bitwise the main path; ``serve_path`` publishes the trained ``w`` and
+serves 16,384 synthetic requests and the file's rows through
+``run_serve_loop`` (each margin bit for bit the kernel's margin of that
+row at its own width and within a stated tolerance of the CPU's plain
+version, ``compiled_shapes`` the flushed shapes, a k = 4 snapshot's
+columns bit for bit the scalar passes, predictions/s, p50/p99 latency, a
+profiled loop's idle share, the margin kernel timed at (256, 64) and
+(256, 512)); ``faults_ckpt`` runs ``run_fdsvrg`` under a seeded
+``FaultyBackend`` (drops and stragglers, then a crash at outer 1 under a
+``RecoveryPolicy``: the meter identity exact, bitwise the fault-free
+run) and resumes a checkpointed 2-outer run to 3 outers, bitwise the
+uninterrupted run.
 Each phase prints one JSON line; the last line is the result object
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 without printing it, as does a machine without a CUDA device or a
@@ -399,7 +418,7 @@ ASYNC_STEPS = 2000  # AsySVRG and PS-Lite (N)
 ASYNC_ETA = 0.1
 SAGA_STEPS = 2000  # FD-SAGA (N / u)
 BCD_STEPS = 2 * Q  # FD-BCD: two cycles over the q blocks (q)
-MULTI_STEPS, MULTI_K = 500, 4  # multi-output SVRG, the plain path (N / u)
+MULTI_STEPS, MULTI_K = 500, 4  # multi-output SVRG (N / u)
 
 
 def solver_paths(torch, ops, data, bd8, loss, reg, eta: float, obj_init: float) -> dict:
@@ -408,9 +427,9 @@ def solver_paths(torch, ops, data, bd8, loss, reg, eta: float, obj_init: float) 
     line with its cut, its exact meter and launch counts, two kernel-path
     runs bitwise equal (the second under ``call_counter``: no
     ``index_add_``), the plain twin within RUN_RTOL / RUN_W_RTOL, steps/s
-    and one profiled outer's idle share.  Multi-output runs the plain path
-    only (the reference's rule); its twin is the k scalar kernel-path runs,
-    one a column.  Returns each path's launch counts."""
+    and one profiled outer's idle share.  Multi-output's kernel route is k
+    scalar kernel-path epochs, each column also held bit for bit against
+    its scalar run.  Returns each path's launch counts."""
     import dataclasses
 
     import numpy as np
@@ -532,52 +551,468 @@ def solver_paths(torch, ops, data, bd8, loss, reg, eta: float, obj_init: float) 
         check("rule_paths", method, make_run, steps, want, per_outer, init, True, cut)
 
     # Multi-output SVRG, k = MULTI_K: column 0 the real labels, the others
-    # +-1 from a seed; its twin is the k scalar kernel-path runs.
+    # +-1 from a seed.  The kernel route runs k scalar kernel-path epochs
+    # over one sample stream: two runs bitwise, no index_add_, k times the
+    # scalar launch counts, each column bit for bit the scalar kernel run on
+    # its labels, and the plain path (batched over k) within RUN_RTOL.
     y = np.random.default_rng(SEED + 11).choice([-1.0, 1.0], size=(n, MULTI_K))
     y[:, 0] = bd8.labels.cpu().numpy()
     y = torch.from_numpy(y.astype(np.float32)).to(bd8.device)
     wide = dataclasses.replace(bd8, labels=y)
 
     def multi_run(use_kernels, outers):
-        return rules.run_with_rule(rules.SVRGRule(use_kernels=False), rules.make_context(
+        return rules.run_with_rule(rules.SVRGRule(use_kernels=use_kernels), rules.make_context(
             wide, loss, reg, config(MULTI_STEPS, outers), backend=SimBackend(Q)))
 
-    res, wall, counts = timed(multi_run, False, OUTERS)
+    per_outer = (COSTS.fd_fullgrad(n=n, nnz=nnz, q=Q, k=MULTI_K).scalars
+                 + MULTI_STEPS * COSTS.fd_inner_step(nnz=nnz, q=Q, u=1, k=MULTI_K).scalars)
+    scalar = dict(sparse_margin=snaps + OUTERS * MULTI_STEPS,
+                  logistic_grad=snaps + OUTERS * MULTI_STEPS, block_scatter=snaps,
+                  prox_update=Q * OUTERS * MULTI_STEPS)
+    check("rule_paths", "svrg_multi_output", multi_run, MULTI_STEPS,
+          {kernel: MULTI_K * c for kernel, c in scalar.items()}, per_outer, 0, True,
+          f"M = {MULTI_STEPS} inner steps per outer (the paper's M = N = {n}); "
+          f"{OUTERS} outers; k = {MULTI_K} outputs (the kernel route: k scalar epochs)")
+    res = multi_run(True, OUTERS)
     cols = [rules.run_with_rule(rules.SVRGRule(), rules.make_context(
         dataclasses.replace(bd8, labels=y[:, j].contiguous()), loss, reg,
         config(MULTI_STEPS, OUTERS), backend=SimBackend(Q))) for j in range(MULTI_K)]
-    objs = res.objectives()
+    cols_bitwise = [bool(torch.equal(res.w[:, j].contiguous(), c.w)) for j, c in enumerate(cols)]
     col_mean = np.mean([c.objectives() for c in cols], axis=0)
-    obj_rel = float(np.max(np.abs(objs - col_mean) / np.abs(col_mean)))
-    w_err = max(float(torch.max(torch.abs(res.w[:, j] - c.w))) for j, c in enumerate(cols))
-    w_scale = max(float(torch.max(torch.abs(c.w))) for c in cols)
-    per_outer = (COSTS.fd_fullgrad(n=n, nnz=nnz, q=Q, k=MULTI_K).scalars
-                 + MULTI_STEPS * COSTS.fd_inner_step(nnz=nnz, q=Q, u=1, k=MULTI_K).scalars)
-    comm = [h.comm_scalars for h in res.history]
-    want_comm = [per_outer * (t + 1) for t in range(OUTERS)]
-    want_counts = expected_launches(ops)
-    emit({"phase": "rule_paths", "method": "svrg_multi_output", "k": MULTI_K, "d": d, "N": n,
-          "q": Q, "eta": eta, "reg": reg.name, "lam": reg.lam, "outers": OUTERS,
-          "inner_steps": MULTI_STEPS,
-          "cut": f"M = {MULTI_STEPS} inner steps per outer (the paper's M = N = {n}); "
-                 f"{OUTERS} outers; k = {MULTI_K} outputs",
-          "objective_init": obj_init, "objectives": objs.tolist(),
-          "objective_mean_of_scalar_runs": col_mean.tolist(), "objective_rel_err": obj_rel,
-          "w_max_abs_err": w_err, "w_max_abs": w_scale,
-          "tolerance": f"the plain path (index_add_ on the card) vs k scalar kernel-path "
-                       f"runs: objective rtol {RUN_RTOL:g}, max|dw| <= {RUN_W_RTOL:g} * max|w|",
-          "comm_scalars": comm, "expected_comm_scalars": want_comm, "launches": counts,
-          "expected_launches": want_counts, "wall_s": wall,
-          "inner_steps_per_s": OUTERS * MULTI_STEPS / wall,
-          **profiled(multi_run, False, MULTI_STEPS)})
-    require(all(math.isfinite(o) for o in objs) and objs[0] < obj_init and objs[1] < objs[0],
-            f"multi-output: objective does not fall: {obj_init} -> {objs.tolist()}")
-    require(comm == want_comm and res.meter.total_scalars == want_comm[-1],
-            f"multi-output: meter {comm} != {want_comm}")
-    require(counts == want_counts, f"multi-output: launches {counts} (the plain path)")
-    require(obj_rel <= RUN_RTOL and w_err <= RUN_W_RTOL * w_scale,
-            f"multi-output vs scalar runs: objective rel {obj_rel}, w {w_err} of {w_scale}")
+    obj_rel = float(np.max(np.abs(res.objectives() - col_mean) / np.abs(col_mean)))
+    emit({"phase": "rule_paths", "method": "svrg_multi_output_columns", "k": MULTI_K,
+          "columns_bitwise_scalar_kernel_runs": cols_bitwise,
+          "objective_mean_of_scalar_runs": col_mean.tolist(),
+          "objective_rel_vs_mean_of_scalar_runs": obj_rel,
+          "tolerance": "each column bitwise its scalar kernel-path run; the objective within "
+                       f"rtol {RUN_RTOL:g} of the scalar runs' mean"})
+    require(all(cols_bitwise), f"multi-output columns vs scalar kernel runs: {cols_bitwise}")
+    require(obj_rel <= RUN_RTOL, f"multi-output objective vs scalar runs' mean: {obj_rel}")
     return launches
+
+
+# The slice-10 phases: ingestion, serving, faults and checkpoints.
+INGEST_CHUNKS = (4096, 997)  # chunk_rows of the two streamed builds
+SERVE_REQUESTS, SERVE_NNZ = 16_384, (4, 64)  # synthetic_request_source
+SERVE_MAX_BATCH, SERVE_MAX_DELAY_S = 256, 0.002
+SERVE_PROFILE_ROWS = 4096  # requests in the profiled serve loop
+SERVE_K = 4  # the multi-output snapshot's columns
+FAULT_STEPS, FAULT_OUTERS = 1000, 3  # faults_ckpt: M and outers (the resume at 2 of 3)
+FAULT_PLAN = dict(seed=SEED, drop_prob=0.05, straggler_prob=0.05, straggler_delay_s=0.2)
+
+
+def _ingest_task(src, part, kind: str, arg, cache_dir: str):
+    """One parse pass of ``ingest_path`` in a worker process: a streamed
+    build ("build", chunk_rows), one worker's slab ("slab", block) or the
+    cache's miss ("miss").  Arrays come back as NumPy, with the pass's
+    seconds."""
+    from repro_torch.data import ingest_cache, pipeline
+
+    t0 = time.perf_counter()
+    if kind == "build":
+        bd = pipeline.stream_block_csr(src, part, chunk_rows=arg)
+        out = ([t.numpy() for t in bd.indices], [t.numpy() for t in bd.values],
+               [t.numpy() for t in bd.nnz_col], bd.labels.numpy(), bd.nnz_max)
+    elif kind == "slab":
+        out = pipeline.stream_block_slab(src, part, arg, chunk_rows=INGEST_CHUNKS[0])
+    else:
+        outcome = ingest_cache.get_or_build(src, part, cache_dir=cache_dir)
+        out = (outcome.status, outcome.path)
+    return kind, arg, out, time.perf_counter() - t0
+
+
+def ingest_path(torch, ops, data, part8, bd8_cpu, res_main, cfg, loss, reg, workdir) -> dict:
+    """``write_libsvm`` the full-width rows, stream them into the q = 8
+    layout at two chunk sizes (byte for byte the one-shot build and each
+    block's ``stream_block_slab``), ``get_or_build`` a miss then a hit,
+    and train on the streamed layout: bitwise the main path's run.  The
+    parse passes after the scan run at once in a pool of worker
+    processes (one slab a worker, as out-of-core workers would build
+    them), the one-shot ``load_libsvm`` meanwhile in this process.
+    Returns the file's scanned source and its parse rate."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch.core.fdsvrg import run_fdsvrg
+    from repro_torch.data import ingest_cache, libsvm, pipeline
+    from repro_torch.data.block_csr import BlockCSR
+
+    dev = torch.device("cuda")
+    path = os.path.join(workdir, "news20-full.svm")
+    t0 = time.perf_counter()
+    libsvm.write_libsvm(path, data, comment="news20 at full width, the generator's rows")
+    write_s = time.perf_counter() - t0
+    mb = os.path.getsize(path) / 1e6
+    src = pipeline.LibSVMSource(path, dim=data.dim)
+    t0 = time.perf_counter()
+    stats = src.stats()
+    scan_s = time.perf_counter() - t0
+
+    def same(a, b) -> bool:
+        return all(torch.equal(x, y) for x, y in zip(a.indices, b.indices, strict=True)) and \
+            all(torch.equal(x, y) for x, y in zip(a.values, b.values, strict=True)) and \
+            all(torch.equal(a.nnz_col_block(l), b.nnz_col_block(l))
+                for l in range(a.num_blocks)) and \
+            torch.equal(a.labels, b.labels) and a.global_nnz_max() == b.global_nnz_max()
+
+    cache_dir = os.path.join(workdir, "slab-cache")
+    tasks = [("miss", None)] + [("build", c) for c in INGEST_CHUNKS] + \
+        [("slab", l) for l in range(part8.num_blocks)]
+    workers = min(len(tasks), os.cpu_count() or 1)
+    t_pool = time.perf_counter()
+    # Spawned workers import this file as their main module and take this
+    # process's import path, the port included.
+    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures = [pool.submit(_ingest_task, src, part8, kind, arg, cache_dir)
+                   for kind, arg in tasks]
+        t0 = time.perf_counter()
+        loaded = libsvm.load_libsvm(path, dim=data.dim)
+        load_s = time.perf_counter() - t0
+        results = [f.result() for f in futures]
+    pool_s = time.perf_counter() - t_pool
+    round_trip = all(torch.equal(getattr(loaded, f), getattr(data, f))
+                     for f in ("indices", "values", "labels"))
+    one_shot = BlockCSR.from_padded(loaded, part8)
+    builds, slabs_same, pass_s, streamed, miss = {}, [], {}, None, None
+    for kind, arg, out, seconds in results:
+        pass_s[f"{kind} {arg}" if arg is not None else kind] = seconds
+        if kind == "build":
+            idx, val, nnz_col, labels, nnz_max = out
+            built = BlockCSR(partition=part8, indices=tuple(map(torch.from_numpy, idx)),
+                             values=tuple(map(torch.from_numpy, val)),
+                             labels=torch.from_numpy(labels), dim=data.dim,
+                             nnz_col=tuple(map(torch.from_numpy, nnz_col)), nnz_max=nnz_max)
+            builds[arg] = {"stream_s": seconds, "bytewise_from_padded": same(built, one_shot),
+                           "bytewise_generator_layout": same(built, bd8_cpu)}
+            streamed = streamed or built
+        elif kind == "miss":
+            miss = out
+    for kind, l, out, _ in results:
+        if kind == "slab":
+            idx, val, nnz_col = out
+            slabs_same.append(torch.equal(torch.from_numpy(idx), streamed.indices[l])
+                              and torch.equal(torch.from_numpy(val), streamed.values[l])
+                              and torch.equal(torch.from_numpy(nnz_col),
+                                              streamed.nnz_col_block(l)))
+    t0 = time.perf_counter()
+    hit = ingest_cache.get_or_build(src, part8, cache_dir=cache_dir)
+    hit_s = time.perf_counter() - t0
+    digest = src.digest()
+    t0 = time.perf_counter()
+    ingest_cache.save_block_csr(os.path.join(workdir, "slab-cache-timed"), digest, streamed)
+    cache_write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reread = ingest_cache.load_block_csr(os.path.join(workdir, "slab-cache-timed"), digest, part8)
+    cache_read_s = time.perf_counter() - t0
+    cache_bytes = sum(os.path.getsize(os.path.join(hit.path, f)) for f in os.listdir(hit.path))
+
+    # Train on the streamed layout: the main path's configuration, bitwise
+    # its run on the generator's layout.
+    on_card = streamed.to(dev)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    run = run_fdsvrg(None, part8, loss, reg, cfg, block_data=on_card, use_kernels=True)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    steps, outers = cfg.inner_steps, cfg.outer_iters
+    want = expected_launches(ops, sparse_margin=outers + 1 + steps * outers,
+                             logistic_grad=outers + 1 + steps * outers,
+                             block_scatter=outers + 1,
+                             prox_update=part8.num_blocks * steps * outers)
+    objs = run.objectives().tolist()
+    bitwise = bool(torch.equal(run.w, res_main.w)) and objs == res_main.objectives().tolist()
+    line = {"phase": "ingest_path", "file_mb": mb, "rows": stats.num_instances,
+            "d": stats.dim, "nnz_per_row": stats.nnz_max, "write_s": write_s,
+            "parse_s": scan_s, "parse_rows_per_s": stats.num_instances / scan_s,
+            "parse_mb_per_s": mb / scan_s, "load_libsvm_s": load_s,
+            "round_trip_bytewise": round_trip, "builds": builds,
+            "stream_block_slab_bytewise": slabs_same,
+            "pool": {"workers": workers, "wall_s": pool_s, "pass_s": pass_s,
+                     "note": "the cache miss, the two builds and the 8 slabs in worker "
+                             "processes at once, load_libsvm meanwhile here"},
+            "cache": {"miss": miss[0], "hit": hit.status, "same_entry": miss[1] == hit.path,
+                      "hit_s": hit_s, "hit_bytewise": same(hit.data, streamed),
+                      "write_s": cache_write_s, "read_s": cache_read_s,
+                      "reread_bytewise": reread is not None and same(reread, streamed),
+                      "bytes": cache_bytes},
+            "parse_passes": 2 + len(tasks),
+            "cut": "none: the published width and all N rows",
+            "train": {"entry": "run_fdsvrg(block_data=stream_block_csr(...))",
+                      "inner_steps": steps, "outers": outers, "objectives": objs,
+                      "main_path_objectives": res_main.objectives().tolist(),
+                      "bitwise_main_path": bitwise, "wall_s": train_s,
+                      "launches": counts, "expected_launches": want}}
+    emit(line)
+    require(round_trip, "ingest_path: write_libsvm -> load_libsvm is not byte for byte")
+    require(len(builds) == len(INGEST_CHUNKS) and
+            all(b["bytewise_from_padded"] and b["bytewise_generator_layout"]
+                for b in builds.values()), f"ingest_path: streamed layouts differ: {builds}")
+    require(len(slabs_same) == part8.num_blocks and all(slabs_same),
+            f"ingest_path: stream_block_slab differs: {slabs_same}")
+    require((miss[0], hit.status) == ("cold", "warm") and line["cache"]["same_entry"]
+            and line["cache"]["hit_bytewise"] and line["cache"]["reread_bytewise"],
+            f"ingest_path: cache {line['cache']}")
+    require(counts == want, f"ingest_path: launches {counts} != {want}")
+    require(bitwise, f"ingest_path: the streamed layout's run {objs} is not bitwise the main "
+                     f"path's {res_main.objectives().tolist()}")
+    return {"source": src, "rows_per_s": stats.num_instances / scan_s}
+
+
+def serve_path(torch, ops, w_trained, news20_source, news20_rows, flush) -> dict:
+    """Publish the trained ``w`` and serve two request streams through
+    ``run_serve_loop`` (frozen): every served margin bit for bit the
+    kernel's margin of that row at its own width, within MARGIN_RTOL of
+    the CPU's plain version, ``compiled_shapes`` the flushed shapes; a
+    k = 4 snapshot's columns bit for bit the scalar passes; the margin
+    kernel timed at the serving shapes.  ``news20_rows`` are the file's
+    rows (``ingest_path`` held them byte for byte).  Returns the timing
+    rows."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.sparse import margins_rows
+    from repro_torch.kernels import sparse_margin as margin_mod
+    from repro_torch.serve import (MicroBatcher, PredictionEngine, WeightSnapshot,
+                                   batched_margins, run_serve_loop, synthetic_request_source)
+
+    dev = torch.device("cuda")
+    d = int(w_trained.shape[0])
+    snap = WeightSnapshot.from_dense(w_trained, 0)
+    w_cpu = w_trained.cpu()
+    requests = synthetic_request_source(dim=d, num_requests=SERVE_REQUESTS,
+                                        nnz_lo=SERVE_NNZ[0], nnz_hi=SERVE_NNZ[1], seed=SEED)
+    sources = {"synthetic_requests": (requests, requests.materialize()),
+               "news20_rows": (news20_source, news20_rows)}
+    lines, rows_of = {}, {}
+    for name, (src, rows) in sources.items():
+        idx_all, val_all = rows.indices.numpy(), rows.values.numpy()
+        engine = PredictionEngine(snap)
+        batcher = MicroBatcher(max_batch=SERVE_MAX_BATCH, max_delay_s=SERVE_MAX_DELAY_S)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        report = run_serve_loop(src, engine, batcher)
+        launches = ops.launch_counts()
+        served = report.margins()
+        # Each row at its own width: rows grouped by their stored entries'
+        # count, one kernel launch a group, outside the counted run.
+        keep = val_all != 0.0
+        nnz = keep.sum(axis=1)
+        own = np.empty(len(nnz), dtype=np.float32)
+        for k in np.unique(nnz):
+            sel = np.nonzero(nnz == k)[0]
+            gi = idx_all[sel][keep[sel]].reshape(len(sel), k)
+            gv = val_all[sel][keep[sel]].reshape(len(sel), k)
+            own[sel] = batched_margins(gi, gv, snap.w)
+        pad_bitwise = served.view(np.int32).tolist() == own.view(np.int32).tolist()
+        n_differ = int(np.count_nonzero(served.view(np.int32) != own.view(np.int32)))
+        plain = margins_rows(rows.indices, rows.values, w_cpu).numpy()
+        scale = torch.sum(torch.abs(w_cpu[rows.indices] * rows.values), dim=-1).numpy()
+        ratio = float(np.max(np.abs(served - plain) / np.maximum(MARGIN_RTOL * scale, 1e-30)))
+        lat = report.latency_percentiles((50, 99))
+        line = {"phase": "serve_path", "source": name, "requests": report.num_requests,
+                "d": d, "max_batch": SERVE_MAX_BATCH, "max_delay_s": SERVE_MAX_DELAY_S,
+                "batches": report.num_batches, "bucket_counts": {
+                    f"{r}x{w}": c for (r, w), c in sorted(report.bucket_counts.items())},
+                "flush_causes": report.flush_causes, "compiled_shapes": report.compiled_shapes,
+                "launches": launches, "predictions_per_s": report.predictions_per_s,
+                "serve_wall_s": report.serve_wall_s, "total_wall_s": report.total_wall_s,
+                **lat, "padding_bitwise_own_width": pad_bitwise, "n_differ_own_width": n_differ,
+                "max_err_over_tolerance": ratio,
+                "tolerance": f"|served - plain CPU| <= {MARGIN_RTOL:g} * sum|w[idx]*val| per "
+                             "row; served bitwise the row's kernel margin at its own width"}
+        emit(line)
+        require(report.num_requests == idx_all.shape[0], f"serve_path {name}: requests lost")
+        require(launches == expected_launches(ops, sparse_margin=report.num_batches),
+                f"serve_path {name}: launches {launches} for {report.num_batches} batches")
+        require(report.compiled_shapes == len(report.bucket_counts),
+                f"serve_path {name}: compiled_shapes {report.compiled_shapes} != "
+                f"{len(report.bucket_counts)} flushed shapes")
+        require(pad_bitwise, f"serve_path {name}: {n_differ} margins change with padding")
+        require(ratio <= 1.0, f"serve_path {name}: served vs plain {ratio} of tolerance")
+        lines[name] = line
+        rows_of[name] = (idx_all, val_all)
+
+    # A k = 4 snapshot: the trained w and three seeded columns; each
+    # column of a served batch bit for bit the scalar pass.
+    rng = np.random.default_rng(SEED + 21)
+    wk = torch.stack([w_trained] + [torch.from_numpy(rng.normal(0.0, 0.1, d).astype(np.float32))
+                                    .to(dev) for _ in range(SERVE_K - 1)], dim=1)
+    engine_k = PredictionEngine(WeightSnapshot.from_dense(wk, 0))
+    idx_all, val_all = rows_of["synthetic_requests"]
+    bi, bv = idx_all[:SERVE_MAX_BATCH], val_all[:SERVE_MAX_BATCH]
+    ops.reset_launch_counts()
+    out_k = engine_k.margins(bi, bv)
+    k_launches = ops.launch_counts()["sparse_margin"]
+    cols_bitwise = [out_k[:, j].tobytes() == batched_margins(bi, bv, wk[:, j].contiguous())
+                    .tobytes() for j in range(SERVE_K)]
+    emit({"phase": "serve_path", "source": "k = 4 snapshot", "rows": int(bi.shape[0]),
+          "width": int(bi.shape[1]), "launches": k_launches,
+          "columns_bitwise_scalar_passes": cols_bitwise})
+    require(k_launches == SERVE_K and all(cols_bitwise),
+            f"serve_path k = {SERVE_K}: launches {k_launches}, columns {cols_bitwise}")
+
+    # One profiled loop: the device's idle share while serving.
+    src = requests
+    engine = PredictionEngine(snap)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        report = run_serve_loop(src, engine, MicroBatcher(max_batch=SERVE_MAX_BATCH,
+                                                          max_delay_s=SERVE_MAX_DELAY_S),
+                                limit_rows=SERVE_PROFILE_ROWS)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    us, calls = device_kernels(torch, prof)
+    busy_s = sum(us.values()) / 1e6
+
+    # The margin kernel at the serving shapes: a full batch of 256 rows at
+    # width 64 (synthetic requests) and 512 (news20 rows, 455 stored).
+    timing = {}
+    for name, width in (("synthetic_requests", 64), ("news20_rows", 512)):
+        idx_all, val_all = rows_of[name]
+        keep = val_all[:SERVE_MAX_BATCH] != 0.0
+        bi = np.zeros((SERVE_MAX_BATCH, width), np.int32)
+        bv = np.zeros((SERVE_MAX_BATCH, width), np.float32)
+        for r in range(SERVE_MAX_BATCH):
+            k = int(keep[r].sum())
+            bi[r, :k], bv[r, :k] = idx_all[r][keep[r]], val_all[r][keep[r]]
+        ti, tv = torch.from_numpy(bi).to(dev), torch.from_numpy(bv).to(dev)
+        csr = torch.sparse_csr_tensor(
+            torch.arange(0, SERVE_MAX_BATCH * width + 1, width, dtype=torch.int64, device=dev),
+            ti.reshape(-1).to(torch.int64), tv.reshape(-1), size=(SERVE_MAX_BATCH, d))
+        got = ops.sparse_margins(ti, tv, snap.w)
+        want = margin_mod.sparse_margin_plain(ti, tv, snap.w)
+        scale = torch.sum(torch.abs(snap.w[ti] * tv), dim=-1)
+        err = float(torch.max(torch.abs(got - want)))
+        require(bool(torch.all(torch.abs(got - want) <= MARGIN_RTOL * scale)),
+                f"sparse_margin serving {SERVE_MAX_BATCH}x{width}: kernel vs plain {err}")
+        stored = int(np.count_nonzero(bv))
+        distinct = int(np.unique(bi[bv != 0]).size)
+        # The stored entries (id and value) read once, w at each distinct
+        # id, the margins written; the pad lanes' reads are not counted.
+        b_ms, b_by = bound_ms(stored * 8 + distinct * 4 + SERVE_MAX_BATCH * 4, 2.0 * stored)
+        timing[f"{SERVE_MAX_BATCH}x{width}"] = {
+            "rows": SERVE_MAX_BATCH, "width": width, "stored_entries": stored,
+            "max_abs_err": err,
+            "kernel_ms": device_ms(torch, lambda: ops.sparse_margins(ti, tv, snap.w), 200,
+                                   flush),
+            "plain_ms": device_ms(torch, lambda: margin_mod.sparse_margin_plain(ti, tv, snap.w),
+                                  200, flush),
+            "library_ms": device_ms(torch, lambda: torch.mv(csr, snap.w), 200, flush),
+            "host_ms": host_ms(torch, lambda: ops.sparse_margins(ti, tv, snap.w), 200),
+            "bound_ms": b_ms, "bound_by": b_by, "l2": "cold"}
+    emit({"phase": "serve_path", "source": "profile and kernel timing",
+          "profiled_requests": report.num_requests, "profiled_batches": report.num_batches,
+          "profiled_wall_s": wall_s, "device_busy_s": busy_s,
+          "device_idle_share": 1.0 - busy_s / wall_s,
+          "top_kernels_us_calls": [[k[:90], v, calls.get(k, 0)] for k, v in
+                                   sorted(us.items(), key=lambda kv: -kv[1])[:5]],
+          "sparse_margin_serving": timing})
+    return {"lines": lines, "timing": timing}
+
+
+def faults_ckpt(torch, ops, bd8, part8, loss, reg, eta, workdir) -> dict:
+    """``run_fdsvrg`` at full width, q = 8, kernel path, under a seeded
+    ``FaultyBackend``: drops and stragglers alone (bitwise the fault-free
+    run, the meter the fault-free schedule plus the retries exactly), then
+    with a crash at outer 1 under a ``RecoveryPolicy`` (plus the abort's
+    re-broadcast); then a checkpoint every outer, 2 outers, and a resume to
+    3 in a fresh call, bitwise the uninterrupted run."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.core.driver import CheckpointPolicy, RecoveryPolicy
+    from repro_torch.core.fdsvrg import SVRGConfig, run_fdsvrg
+    from repro_torch.dist import FaultPlan, FaultyBackend, RetryPolicy, SimBackend
+
+    q = part8.num_blocks
+    n = bd8.num_instances
+
+    def cfg(outers):
+        return SVRGConfig(eta=eta, inner_steps=FAULT_STEPS, outer_iters=outers, seed=SEED)
+
+    def run(outers, backend, **kw):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run_fdsvrg(None, part8, loss, reg, cfg(outers), backend=backend, block_data=bd8,
+                         use_kernels=True, **kw)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, ops.launch_counts()
+
+    def same(a, b) -> bool:
+        return bool(torch.equal(a.w, b.w)) and a.objectives().tolist() == b.objectives().tolist()
+
+    want = expected_launches(ops, sparse_margin=FAULT_OUTERS + 1 + FAULT_STEPS * FAULT_OUTERS,
+                             logistic_grad=FAULT_OUTERS + 1 + FAULT_STEPS * FAULT_OUTERS,
+                             block_scatter=FAULT_OUTERS + 1,
+                             prox_update=q * FAULT_STEPS * FAULT_OUTERS)
+    clean, clean_s, clean_counts = run(FAULT_OUTERS, SimBackend(q))
+    retry = RetryPolicy(max_retries=8)
+    drops, drops_s, drops_counts = run(FAULT_OUTERS, FaultyBackend(SimBackend(q),
+                                                                   FaultPlan(**FAULT_PLAN), retry))
+    crash_plan = FaultPlan(**FAULT_PLAN, crash_at_outer=(1,))
+    crash, crash_s, crash_counts = run(FAULT_OUTERS, FaultyBackend(SimBackend(q), crash_plan,
+                                                                   retry),
+                                       recovery=RecoveryPolicy())
+    kinds = {name: dict(r.meter.by_kind) for name, r in (("drops", drops), ("crash", crash))}
+    drops_identity = drops.meter.total_scalars == \
+        clean.meter.total_scalars + kinds["drops"].get("retry", 0)
+    crash_identity = crash.meter.total_scalars == clean.meter.total_scalars + \
+        kinds["crash"].get("retry", 0) + kinds["crash"].get("abort", 0)
+
+    ckdir = os.path.join(workdir, "ckpt")
+    half, half_s, _ = run(FAULT_OUTERS - 1, SimBackend(q),
+                          checkpoint=CheckpointPolicy(directory=ckdir, every=1))
+    resumed, resume_s, resume_counts = run(
+        FAULT_OUTERS, SimBackend(q), checkpoint=CheckpointPolicy(directory=ckdir, every=1,
+                                                                  resume=True))
+    resume_bitwise = same(resumed, clean) and \
+        resumed.meter.state_dict() == clean.meter.state_dict() and \
+        [h.modeled_time_s for h in resumed.history] == [h.modeled_time_s for h in clean.history]
+    ck_bytes = sum(os.path.getsize(os.path.join(ckdir, f)) for f in os.listdir(ckdir))
+    state = {"w": resumed.w, "z": torch.zeros_like(resumed.w), "s0": torch.zeros(n, device="cuda")}
+    timed_path = os.path.join(workdir, "ckpt-timed", "outer")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt.save(timed_path, state, extra={"history": [h.objective for h in resumed.history]})
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = ckpt.restore(timed_path, state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    line = {"phase": "faults_ckpt", "entry": "run_fdsvrg(backend=FaultyBackend(...))",
+            "q": q, "d": bd8.dim, "N": n, "inner_steps": FAULT_STEPS, "outers": FAULT_OUTERS,
+            "cut": f"M = {FAULT_STEPS} inner steps per outer (the paper's M = N = {n}); "
+                   f"{FAULT_OUTERS} outers",
+            "plan": FAULT_PLAN, "crash_at_outer": [1],
+            "objectives_clean": clean.objectives().tolist(),
+            "objectives_drops": drops.objectives().tolist(),
+            "objectives_crash": crash.objectives().tolist(),
+            "by_kind": kinds, "clean_scalars": clean.meter.total_scalars,
+            "meter_identity_drops": drops_identity, "meter_identity_crash": crash_identity,
+            "drops_bitwise_clean": same(drops, clean), "crash_bitwise_clean": same(crash, clean),
+            "modeled_time_s": {"clean": clean.history[-1].modeled_time_s,
+                               "drops": drops.history[-1].modeled_time_s,
+                               "crash": crash.history[-1].modeled_time_s},
+            "launches": {"clean": clean_counts, "drops": drops_counts, "crash": crash_counts,
+                         "resumed": resume_counts},
+            "expected_launches": want,
+            "resume_bitwise_uninterrupted": resume_bitwise,
+            "checkpoint_bytes": ck_bytes, "checkpoint_save_s": save_s,
+            "checkpoint_restore_s": restore_s,
+            "wall_s": {"clean": clean_s, "drops": drops_s, "crash": crash_s,
+                       "first_2_outers": half_s, "resume_to_3": resume_s}}
+    emit(line)
+    require(all(torch.equal(back[k], state[k]) for k in state), "faults_ckpt: ckpt round trip")
+    require(kinds["drops"].get("retry", 0) > 0 and "abort" in kinds["crash"],
+            f"faults_ckpt: the plan fired no retry or no crash: {kinds}")
+    require(drops_identity and crash_identity, f"faults_ckpt: meter identity: {line}")
+    require(same(drops, clean), "faults_ckpt: the retry-only run is not bitwise the clean run")
+    require(same(crash, clean), "faults_ckpt: the recovered run is not bitwise the clean run")
+    require(clean_counts == drops_counts == crash_counts == want,
+            f"faults_ckpt: launches {line['launches']} != {want}")
+    require(resume_bitwise, "faults_ckpt: the resumed run is not bitwise the uninterrupted one")
+    return line
 
 
 def run() -> dict:
@@ -2174,7 +2609,21 @@ def run() -> dict:
                               "--gen", "16", "--layers", "4", "--dtype", "float32"], False)
     torch.cuda.empty_cache()
 
-    # 16. The kernels line.  Launches: sparse_margin, logistic_grad,
+    # 16-18. Streaming LibSVM ingestion, the linear serving tier, faults and
+    # checkpoint/resume, at full-width news20 (files in a directory removed
+    # at the end).
+    import shutil
+    import tempfile
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        ingest = ingest_path(torch, ops, data, part8, bd8_cpu, res, cfg, loss, reg, workdir)
+        serving = serve_path(torch, ops, res.w, ingest["source"], data, flush)
+        faults_ckpt(torch, ops, bd8, part8, loss, reg, cfg.eta, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    # 19. The kernels line.  Launches: sparse_margin, logistic_grad,
     # block_scatter and prox_update from the dense main path (sparse_margin's,
     # logistic_grad's and lazy_catchup's times at one step over all 8
     # blocks, lazy_flush's at one epoch's flush, their launches on the path), the
@@ -2230,6 +2679,9 @@ def run() -> dict:
          "floor_ms": margin_step["floor_ms"], "per_block_ms": margin_step["per_block_ms"],
          "snapshot_ms": snap8["kernel_ms"], "snapshot_bound_ms": snap8["bound_ms"],
          "snapshot_library_ms": snap8["library_ms"],
+         "serving": {**serving["timing"],
+                     "launches": {name: line["launches"]["sparse_margin"]
+                                  for name, line in serving["lines"].items()}},
          "shape": f"one inner step over 8 blocks, u={u} (the snapshot: R={n})"},
         {"name": "block_scatter", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/block_scatter.cu",

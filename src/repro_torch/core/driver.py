@@ -1,7 +1,6 @@
 """The one outer-loop harness every optimizer driver runs on.
 
-Port of ``repro.core.driver`` (checkpoint/resume comes with a later
-slice).  A driver supplies three hooks:
+Port of ``repro.core.driver``.  A driver supplies three hooks:
 
 ``snapshot(w) -> (z_data, s0)``
     The data part of the full gradient and the margins at ``w``, compute
@@ -20,20 +19,28 @@ slice).  A driver supplies three hooks:
     the device.
 
 Recovery is epoch-abort-to-snapshot (:class:`RecoveryPolicy`): a
-:class:`~repro_torch.dist.faults.FaultError` or a diverged objective
-discards the epoch and reruns it from the snapshot the harness holds.
+:class:`~repro_torch.dist.faults.FaultError` (a worker crash or retries
+exhausted, from :class:`~repro_torch.dist.faults.FaultyBackend`) or a
+diverged objective discards the epoch and reruns it from the snapshot the
+harness holds.  Checkpoint/resume (:class:`CheckpointPolicy`): every k
+outers the harness persists (w, z, s0, outer index, eta scale, NumPy rng
+state, meter counters and event log, modeled time, history) through
+:mod:`repro_torch.checkpoint.ckpt`; a resumed run is bit for bit the
+uninterrupted one.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import inspect
+import os
 import time
 from typing import Callable
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import ckpt
 from repro_torch.core import losses as losses_lib
 from repro_torch.dist.collectives import Collectives
 from repro_torch.dist.faults import FaultError
@@ -208,6 +215,66 @@ class RecoveryPolicy:
             raise ValueError("divergence_factor > 1 required")
 
 
+@dataclasses.dataclass(frozen=True)
+class CheckpointPolicy:
+    """Persist outer-loop state every ``every`` outers (and at the end).
+
+    One rolling checkpoint at ``<directory>/outer``: (w, z, s0) in the
+    npz, everything else in the json sidecar's ``extra``.  ``resume=True``
+    restores it before the first epoch when it exists (and starts fresh
+    when it does not); the resumed run is bit for bit the uninterrupted
+    one.  Restored tensors go to the device the run's snapshot lies on.
+    """
+
+    directory: str
+    every: int = 1
+    resume: bool = False
+
+    def __post_init__(self) -> None:
+        if not self.directory:
+            raise ValueError("CheckpointPolicy.directory must be non-empty")
+        if self.every < 1:
+            raise ValueError("CheckpointPolicy.every >= 1 required")
+
+    @property
+    def path(self) -> str:
+        return os.path.join(self.directory, "outer")
+
+    def exists(self) -> bool:
+        return os.path.exists(self.path + ".npz")
+
+
+_CKPT_VERSION = 1
+
+
+def _save_outer_state(
+    policy: CheckpointPolicy,
+    *,
+    w,
+    z_data,
+    s0,
+    outer_next: int,
+    eta_scale: float,
+    rng: np.random.Generator,
+    meter: CommMeter,
+    modeled_time_s: float,
+    history: list[OuterRecord],
+) -> None:
+    ckpt.save(
+        policy.path,
+        {"w": w, "z": z_data, "s0": s0},
+        extra={
+            "version": _CKPT_VERSION,
+            "outer_next": int(outer_next),
+            "eta_scale": float(eta_scale),
+            "rng_state": rng.bit_generator.state,
+            "meter": meter.state_dict(),
+            "modeled_time_s": float(modeled_time_s),
+            "history": [dataclasses.asdict(h) for h in history],
+        },
+    )
+
+
 # ---------------------------------------------------------------------------
 # The engine
 # ---------------------------------------------------------------------------
@@ -223,6 +290,7 @@ def run_outer_loop(
     evaluate: Callable,
     backend: Collectives | None = None,
     recovery: RecoveryPolicy | None = None,
+    checkpoint: CheckpointPolicy | None = None,
 ) -> RunResult:
     """Run ``outer_iters`` outer iterations with snapshot rotation.
 
@@ -230,19 +298,42 @@ def run_outer_loop(
     recomputes at the post-epoch iterate (next outer's snapshot and this
     record's diagnostic pair), ``evaluate`` reports.  ``backend=None`` is
     the serial path: zero scalars/rounds/modeled time on a fresh meter.
+    A backend with ``begin_outer`` (a ``FaultyBackend``) is told each
+    outer before its epoch, which arms the plan's crashes.
+    ``checkpoint`` arms persistence and resume (:class:`CheckpointPolicy`).
     """
     rng = np.random.default_rng(seed)
     w = init_w
     meter = backend.meter if backend is not None else CommMeter()
     history: list[OuterRecord] = []
     eta_scale = 1.0
+    start_outer = 0
     accepts_scale = "eta_scale" in inspect.signature(epoch).parameters
     t_start = time.perf_counter()
     z_data, s0 = snapshot(w)  # outer-0 snapshot
+    if checkpoint is not None and checkpoint.resume and checkpoint.exists():
+        state = ckpt.restore(checkpoint.path, {"w": w, "z": z_data, "s0": s0})
+        extra = ckpt.load_meta(checkpoint.path)["extra"]
+        w, z_data, s0 = state["w"], state["z"], state["s0"]
+        rng.bit_generator.state = extra["rng_state"]
+        meter.load_state(extra["meter"])
+        if backend is not None:
+            # 0.0 + x == x bitwise, and modeled time accumulates left to
+            # right, so re-charging the saved prefix then continuing is
+            # exactly the uninterrupted sum.
+            backend.charge_seconds(extra["modeled_time_s"])
+        eta_scale = float(extra["eta_scale"])
+        start_outer = int(extra["outer_next"])
+        history = [OuterRecord(**h) for h in extra["history"]]
+        if history:
+            t_start = time.perf_counter() - history[-1].wall_time_s
     prev_obj: float | None = None
-    for t in range(outer_iters):
+    for t in range(start_outer, outer_iters):
         attempts = 0
         while True:
+            begin_outer = getattr(backend, "begin_outer", None)
+            if begin_outer is not None:
+                begin_outer(t)
             try:
                 if accepts_scale:
                     w_new = epoch(t, rng, w, z_data, s0, eta_scale=eta_scale)
@@ -287,4 +378,21 @@ def run_outer_loop(
                 time.perf_counter() - t_start,
             )
         )
+        if checkpoint is not None and (
+            (t + 1) % checkpoint.every == 0 or t == outer_iters - 1
+        ):
+            _save_outer_state(
+                checkpoint,
+                w=w,
+                z_data=z_data,
+                s0=s0,
+                outer_next=t + 1,
+                eta_scale=eta_scale,
+                rng=rng,
+                meter=meter,
+                modeled_time_s=(
+                    backend.modeled_time_s if backend is not None else 0.0
+                ),
+                history=history,
+            )
     return RunResult(w=w, history=history, meter=meter)

@@ -39,6 +39,7 @@ import torch
 
 from repro_torch.core import losses as losses_lib
 from repro_torch.core.driver import (
+    CheckpointPolicy,
     RecoveryPolicy,
     RunResult,
     draw_samples,
@@ -463,6 +464,7 @@ def run_serial_svrg(
     init_w: torch.Tensor | np.ndarray | None = None,
     lazy_updates: str | None = None,
     recovery: RecoveryPolicy | None = None,
+    checkpoint: CheckpointPolicy | None = None,
     device: torch.device | str | None = None,
 ) -> RunResult:
     """Serial SVRG on the q = 1 layout.
@@ -470,7 +472,9 @@ def run_serial_svrg(
     ``use_kernels`` defaults to ``True`` (the reference's default is
     ``False``): on a CUDA device the run goes through the CUDA kernels.
     ``device`` defaults to ``cuda`` and raises when no CUDA device exists;
-    pass ``device="cpu"`` for the plain path on the CPU.
+    pass ``device="cpu"`` for the plain path on the CPU.  ``checkpoint``
+    persists and resumes the outer loop (a streamed ``block_data`` runs
+    without the global ``PaddedCSR``).
     """
     _check_lazy(lazy_updates)
     device = resolve_device(device)
@@ -490,6 +494,7 @@ def run_serial_svrg(
         make_context(block_data.to(device), loss, reg, cfg),
         init_w=init_w,
         recovery=recovery,
+        checkpoint=checkpoint,
     )
 
 
@@ -512,6 +517,7 @@ def run_fdsvrg(
     init_w: torch.Tensor | np.ndarray | None = None,
     lazy_updates: str | None = None,
     recovery: RecoveryPolicy | None = None,
+    checkpoint: CheckpointPolicy | None = None,
     device: torch.device | str | None = None,
 ) -> RunResult:
     """Algorithm 1 with q = partition.num_blocks feature-sharded workers.
@@ -526,7 +532,9 @@ def run_fdsvrg(
 
     ``use_kernels`` defaults to ``True`` (the reference's default is
     ``False``); ``device`` defaults to ``cuda`` and raises when no CUDA
-    device exists.
+    device exists.  ``backend`` may be a ``FaultyBackend`` over a
+    ``SimBackend``; ``recovery`` and ``checkpoint`` arm the harness's
+    epoch-abort recovery and checkpoint/resume.
     """
     _check_lazy(lazy_updates)
     device = resolve_device(device)
@@ -551,6 +559,7 @@ def run_fdsvrg(
         make_context(block_data.to(device), loss, reg, cfg, backend=backend),
         init_w=init_w,
         recovery=recovery,
+        checkpoint=checkpoint,
     )
 
 
@@ -639,6 +648,7 @@ def fdsvrg_worker_simulation(
     init_w: torch.Tensor | np.ndarray | None = None,
     lazy_updates: str | None = None,
     recovery: RecoveryPolicy | None = None,
+    checkpoint: CheckpointPolicy | None = None,
     device: torch.device | str | None = None,
 ) -> RunResult:
     """Object-level Algorithm 1: a list of per-worker states; every
@@ -764,4 +774,5 @@ def fdsvrg_worker_simulation(
         evaluate=make_same_iterate_eval(labels, loss, reg, cfg.eta),
         backend=backend,
         recovery=_with_default_abort(recovery, n, block_data.global_nnz_max(), q),
+        checkpoint=checkpoint,
     )

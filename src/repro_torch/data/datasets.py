@@ -85,8 +85,10 @@ def load(
     if est > budget:
         raise MemoryError(
             f"materializing {name!r} (scaled={scaled}) needs ~{est / 1e9:.1f} GB"
-            f" on one host (budget {budget / 1e9:.1f} GB); the streaming"
-            " ingestion path is not ported yet — raise max_bytes /"
+            f" on one host (budget {budget / 1e9:.1f} GB); use the streaming"
+            " path instead — repro_torch.data.pipeline.SyntheticSource"
+            f".from_dataset({name!r}, scaled={scaled}) with"
+            " stream_block_csr, or raise max_bytes /"
             " REPRO_MATERIALIZE_BUDGET_BYTES if you really have the RAM."
         )
     return make_sparse_classification(

@@ -1,9 +1,17 @@
-"""The distributed substrate: meters, cost closed forms, tree schedules and
-the single-process ``Collectives`` backends (port of ``repro.dist``)."""
+"""The distributed substrate: meters, cost closed forms, tree schedules,
+the single-process ``Collectives`` backends and seeded fault injection
+(port of ``repro.dist``)."""
 
 from repro_torch.dist.collectives import Collectives, LocalBackend, SimBackend
 from repro_torch.dist.costs import COSTS, CostModel, PhaseCost
-from repro_torch.dist.faults import FaultError
+from repro_torch.dist.faults import (
+    FaultError,
+    FaultPlan,
+    FaultyBackend,
+    RetriesExhaustedError,
+    RetryPolicy,
+    WorkerCrashError,
+)
 from repro_torch.dist.meter import ClusterModel, CommEvent, CommMeter, tree_rounds
 from repro_torch.dist.metering import CommReport
 from repro_torch.dist.tree import (
@@ -22,12 +30,17 @@ __all__ = [
     "CommReport",
     "CostModel",
     "FaultError",
+    "FaultPlan",
+    "FaultyBackend",
     "LocalBackend",
     "PhaseCost",
+    "RetriesExhaustedError",
+    "RetryPolicy",
     "SimBackend",
     "broadcast_schedule",
     "simulate_tree_sum",
     "tree_order_sum",
     "tree_rounds",
     "tree_schedule",
+    "WorkerCrashError",
 ]

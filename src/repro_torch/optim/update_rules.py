@@ -4,10 +4,11 @@ Port of ``repro.optim.update_rules``: the context, the rule protocol,
 :func:`run_with_rule`, and the three rules of :data:`RULES`:
 
 * :class:`SVRGRule` — Prox-SVRG, dense or lazy; with a ``[N, k]`` label
-  matrix, multi-output ``w ∈ R^{d×k}`` (the plain path only, as in the
-  reference: the inner epoch and the snapshot run as batched torch ops
-  over the trailing output axis, the reference's ``vmap``, with one
-  sample stream and step mask for all k outputs);
+  matrix, multi-output ``w ∈ R^{d×k}`` with one sample stream and step
+  mask for all k outputs (the reference's ``vmap`` of the scalar epoch
+  over columns): on the kernel route k scalar kernel-path snapshots and
+  epochs, one a column; on the plain path batched torch ops over the
+  trailing output axis;
 * :class:`SAGARule` — feature-distributed SAGA: a replicated n-float
   gradient table and its running mean;
 * :class:`BCDRule` — distributed block coordinate descent, one whole
@@ -32,6 +33,7 @@ import torch
 
 from repro_torch.core import losses as losses_lib
 from repro_torch.core.driver import (
+    CheckpointPolicy,
     RecoveryPolicy,
     RunResult,
     draw_samples,
@@ -142,6 +144,7 @@ class UpdateRule:
 
     name: str = "update_rule"
     supports_recovery: bool = False
+    supports_checkpoint: bool = False
     supports_multi_output: bool = False
     supports_option_ii: bool = False
 
@@ -180,6 +183,7 @@ def run_with_rule(
     *,
     init_w=None,
     recovery: RecoveryPolicy | None = None,
+    checkpoint: CheckpointPolicy | None = None,
 ) -> RunResult:
     """Wire one rule into the outer-loop harness and run it."""
     rule.validate(ctx)
@@ -188,6 +192,12 @@ def run_with_rule(
             f"rule {rule.name!r} does not support epoch-abort recovery: its "
             "carried state (gradient table / block cursor) advances inside "
             "the epoch, so a snapshot retry would replay against mutated state"
+        )
+    if checkpoint is not None and not rule.supports_checkpoint:
+        raise ValueError(
+            f"rule {rule.name!r} does not support checkpoint/resume: the "
+            "harness checkpoint only persists (w, z, s0), not the rule's "
+            "carried state"
         )
     if recovery is not None and recovery.on_abort is None \
             and ctx.backend is not None:
@@ -203,6 +213,7 @@ def run_with_rule(
         evaluate=rule.build_evaluate(ctx),
         backend=ctx.backend,
         recovery=recovery,
+        checkpoint=checkpoint,
     )
 
 
@@ -213,6 +224,15 @@ def _snapshot_hook(ctx: RuleContext, use_kernels: bool) -> Callable:
         return _full_grad_blocks(bd, w, loss, use_kernels)
 
     return snapshot
+
+
+def _columns(ctx: RuleContext) -> list[BlockCSR]:
+    """The layout once per output column, each with that column's labels
+    (the rows and the scatter index shared): the multi-output kernel
+    route runs one scalar kernel-path snapshot and epoch a column."""
+    bd = ctx.block_data
+    return [dataclasses.replace(bd, labels=bd.labels[:, j].contiguous())
+            for j in range(ctx.num_outputs)]
 
 
 # ---------------------------------------------------------------------------
@@ -229,8 +249,11 @@ class SVRGRule(UpdateRule):
     swaps the dense inner epoch for the delayed-decay one
     (:func:`~repro_torch.core.fdsvrg._lazy_inner_epoch`); it is
     block-local, so the metering is the dense epoch's.  Multi-output
-    labels (k > 1) run the plain epoch only (the kernels have no trailing
-    output axis): they need ``use_kernels=False`` and no ``lazy_updates``.
+    labels (k > 1) run the dense epoch only (no ``lazy_updates``, as in
+    the reference).  On the kernel route they run as k scalar kernel-path
+    snapshots and epochs over the one sample stream and step mask, each
+    column bit for bit its scalar run, so a card run repeats bit for bit
+    (the reference raises there; its multi-output is the plain ``vmap``).
     """
 
     use_kernels: bool = True
@@ -238,24 +261,34 @@ class SVRGRule(UpdateRule):
 
     name = "svrg"
     supports_recovery = True
+    supports_checkpoint = True
     supports_multi_output = True
     supports_option_ii = True
 
     def validate(self, ctx: RuleContext) -> None:
         super().validate(ctx)
         _check_lazy(self.lazy_updates)
-        if ctx.num_outputs > 1 and (self.use_kernels or self.lazy_updates):
+        if ctx.num_outputs > 1 and self.lazy_updates:
             raise ValueError(
-                "multi-output labels run the plain inner step only: "
-                "use_kernels/lazy_updates have no trailing-k kernels "
-                f"(got k={ctx.num_outputs}); pass use_kernels=False"
+                "multi-output labels run the dense inner step only: "
+                "lazy_updates has no trailing-k form "
+                f"(got k={ctx.num_outputs})"
             )
 
     def default_abort(self, ctx: RuleContext) -> Callable | None:
         return _default_fd_abort(ctx.n * ctx.num_outputs, ctx.nnz, ctx.q)
 
     def build_snapshot(self, ctx: RuleContext) -> Callable:
-        return _snapshot_hook(ctx, self.use_kernels)
+        if ctx.num_outputs == 1 or not self.use_kernels:
+            return _snapshot_hook(ctx, self.use_kernels)
+        cols, loss = _columns(ctx), ctx.loss
+
+        def snapshot(w):
+            zs, ss = zip(*(_full_grad_blocks(col, w[:, j].contiguous(), loss, True)
+                           for j, col in enumerate(cols)))
+            return torch.stack(zs, dim=1), torch.stack(ss, dim=1)
+
+        return snapshot
 
     def build_epoch(self, ctx: RuleContext) -> Callable:
         bd, cfg, backend, loss, reg = (
@@ -264,6 +297,7 @@ class SVRGRule(UpdateRule):
         use_kernels, lazy_updates = self.use_kernels, self.lazy_updates
         corrections = _lazy_corrections(bd, ctx.n, ctx.u, lazy_updates)
         n, u, nnz, q, k = ctx.n, ctx.u, ctx.nnz, ctx.q, ctx.num_outputs
+        cols = _columns(ctx) if k > 1 and use_kernels else None
 
         def epoch(t, rng, w, z_data, s0, eta_scale=1.0):
             # Full-gradient phase (Alg 1 lines 3-5): account the snapshot
@@ -280,6 +314,12 @@ class SVRGRule(UpdateRule):
                     bd, w, z_data, s0, samples, eta, mask, corrections, loss, reg,
                     use_kernels, lazy_updates,
                 )
+            elif cols is not None:
+                w = torch.stack([
+                    _inner_epoch(col, w[:, j].contiguous(), z_data[:, j].contiguous(),
+                                 s0[:, j].contiguous(), samples, eta, mask, loss, reg, True)
+                    for j, col in enumerate(cols)
+                ], dim=1)
             else:
                 w = _inner_epoch(
                     bd, w, z_data, s0, samples, eta, mask, loss, reg, use_kernels

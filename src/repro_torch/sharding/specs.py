@@ -3,7 +3,7 @@
 Port of the part of ``repro.sharding.specs`` that the model code calls:
 :meth:`ShardingCtx.constrain` (here the identity) and
 :func:`unsharded_ctx`.  The mesh rules, ``param_specs`` and
-``cache_specs`` come with the multi-device slice (ROADMAP queue 10);
+``cache_specs`` come with the multi-device slice (ROADMAP queue 1 item 10);
 the model code already names its logical axes, so they slot in there.
 """
 

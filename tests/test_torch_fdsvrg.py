@@ -209,11 +209,11 @@ def test_unported_options_raise():
     import dataclasses
 
     multi = dataclasses.replace(bd, labels=torch.stack([bd.labels, bd.labels], 1))
-    # Multi-output labels run the plain path only (the kernels have no
-    # trailing output axis): the default use_kernels=True refuses them.
+    # Multi-output labels run the dense epoch only: the lazy steps refuse
+    # them (the kernel route runs them as one scalar epoch a column).
     with pytest.raises(ValueError, match="multi-output"):
         t_run_serial(None, t_losses.logistic, t_losses.l2(1e-3), tcfg, block_data=multi,
-                     device="cpu")
+                     lazy_updates="exact", device="cpu")
     with pytest.raises(ValueError, match="q=1 layout"):
         t_run_serial(None, t_losses.logistic, t_losses.l2(1e-3), tcfg,
                      block_data=BlockCSR.from_padded(t_data, t_balanced(t_data.dim, 2)),

@@ -1,11 +1,11 @@
 """The port's update-rule family (``repro_torch.optim.update_rules``) held
 against the reference's (``repro.optim.update_rules``), on the CPU.
 
-* Multi-output ``w ∈ R^{d×k}`` (SVRG, plain path): against the
-  reference's vmapped run, each column bit for bit the port's own scalar
-  run on that column, ``[N, 1]`` labels bit for bit the 1-D path, the
-  meter scaled by k, and the refusals (kernels, lazy steps, the rules
-  without multi-output).
+* Multi-output ``w ∈ R^{d×k}`` (SVRG, plain path and kernel route, the
+  latter k scalar kernel-path epochs): against the reference's vmapped
+  run, each column bit for bit the port's own scalar run on that column,
+  ``[N, 1]`` labels bit for bit the 1-D path, the meter scaled by k, and
+  the refusals (lazy steps, the rules without multi-output).
 * FD-SAGA and FD-BCD at q in {2, 4}, l2 and l1, kernel route (the plain
   versions on the CPU) and plain path: every meter field exact, the §4.5
   closed forms (SAGA's one-time table init included), objectives and grad
@@ -258,14 +258,39 @@ def test_multi_output_meter_scales_by_k(q):
 
 
 def test_multi_output_rejects_kernels_lazy_and_other_rules():
+    # Since the kernel route runs k scalar epochs, only the lazy steps and
+    # the rules without multi-output refuse [N, k] labels.
     block = dataclasses.replace(_blocks(2)[1], labels=torch.from_numpy(_multi_labels(2)))
     ctx = t_rules.make_context(block, t_losses.logistic, t_losses.l2(1e-3),
                                TConfig(eta=0.2, inner_steps=4, outer_iters=1))
     assert ctx.num_outputs == 2
-    for rule in (t_rules.SVRGRule(), t_rules.SVRGRule(use_kernels=False, lazy_updates="exact"),
+    for rule in (t_rules.SVRGRule(lazy_updates="exact"),
+                 t_rules.SVRGRule(use_kernels=False, lazy_updates="exact"),
                  t_rules.SAGARule(use_kernels=False), t_rules.BCDRule(use_kernels=False)):
         with pytest.raises(ValueError, match="multi-output"):
             t_rules.run_with_rule(rule, ctx)
+
+
+@pytest.mark.parametrize("q", [1, 2])
+def test_multi_output_kernel_route_is_k_scalar_runs_bitwise(q):
+    """The kernel route (the plain versions on the CPU) runs k scalar
+    kernel-path epochs over one sample stream: each column is its scalar
+    run bit for bit, the meter the plain path's, and the whole run within
+    OBJ_RTOL / W_ATOL of the reference's vmapped run."""
+    k = 3
+    y = _multi_labels(k)
+    ref, port = _multi(y, "logistic", dict(inner_steps=16), q=q, use_kernels=True)
+    _, plain = _multi(y, "logistic", dict(inner_steps=16), q=q)
+    assert port.w.shape == (DATA["dim"], k)
+    _assert_runs_agree(ref, port)
+    assert port.meter.state_dict() == plain.meter.state_dict()
+    for j in range(k):
+        _, col = _multi(np.ascontiguousarray(y[:, j]), "logistic", dict(inner_steps=16), q=q,
+                        use_kernels=True)
+        assert torch.equal(port.w[:, j].contiguous(), col.w)
+    objs = np.mean([_multi(np.ascontiguousarray(y[:, j]), "logistic", dict(inner_steps=16),
+                           q=q, use_kernels=True)[1].objectives() for j in range(k)], axis=0)
+    np.testing.assert_allclose(port.objectives(), objs, rtol=OBJ_RTOL)
 
 
 # ---------------------------------------------------------------------------
@@ -309,6 +334,29 @@ def test_rule_kernel_runs_bitwise_and_near_plain_on_card(cuda_device, name, reg)
     w_err = float(torch.max(torch.abs(runs[0].w - plain.w)))
     assert w_err <= RUN_W_RTOL * float(torch.max(torch.abs(plain.w)))
     assert runs[0].meter.state_dict() == _port_rule(name, q, reg, True).meter.state_dict()
+
+
+@pytest.mark.cuda
+def test_multi_output_kernel_route_on_card_repeats_bitwise(cuda_device):
+    k, q = 3, 2
+    y = _multi_labels(k)
+    cfg = TConfig(eta=0.2, inner_steps=16, outer_iters=3, seed=2)
+    block = dataclasses.replace(_blocks(q)[1], labels=torch.from_numpy(y)).to(cuda_device)
+    runs = []
+    for _ in range(2):
+        ops.reset_launch_counts()
+        runs.append(t_rules.run_with_rule(t_rules.SVRGRule(), t_rules.make_context(
+            block, t_losses.logistic, t_losses.l2(1e-3), cfg, backend=TSimBackend(q))))
+        snaps, m = cfg.outer_iters + 1, cfg.inner_steps * cfg.outer_iters
+        assert {c: v for c, v in ops.launch_counts().items() if v} == dict(
+            sparse_margin=k * (snaps + m), logistic_grad=k * (snaps + m),
+            block_scatter=k * snaps, prox_update=k * q * m)
+    assert torch.equal(runs[0].w, runs[1].w)
+    assert runs[0].objectives().tolist() == runs[1].objectives().tolist()
+    cpu = t_rules.run_with_rule(t_rules.SVRGRule(), t_rules.make_context(
+        dataclasses.replace(_blocks(q)[1], labels=torch.from_numpy(y)), t_losses.logistic,
+        t_losses.l2(1e-3), cfg, backend=TSimBackend(q)))
+    np.testing.assert_allclose(runs[0].objectives(), cpu.objectives(), rtol=RUN_RTOL)
 
 
 @pytest.mark.cuda
