@@ -1015,6 +1015,298 @@ def faults_ckpt(torch, ops, bd8, part8, loss, reg, eta, workdir) -> dict:
     return line
 
 
+FRONT_OVR_STEPS = 500  # one-vs-rest: M per outer, 2 outers, 3 classes
+FRONT_SERVE_REQUESTS = 2048  # the interleaved serve loop's request stream
+FRONT_UPDATE_EVERY = 4  # chunks of 64 rows between updates: 8 updates
+FRONT_UPDATE_STEPS = 64  # M of an update: one pass over its 64-row chunk (N / u)
+
+
+def front_door(torch, ops, data, res, cfg, counts, lazy_counts, lazy_res) -> dict:
+    """The front door at full-width news20: ``solve(ExperimentSpec)``
+    bitwise the main path's ``run_fdsvrg`` with its launch counts and no
+    ``index_add_``; a second solve on the same data building no new layout
+    or row table; exact lazy through the spec bitwise the dense run;
+    ``FDSVRGClassifier`` fit (``coef_`` bitwise the same run), predict /
+    score through kernel 1 (bitwise ``batched_margins``), one
+    ``partial_fit`` (seed 1, history rebased); one-vs-rest over 3 planted
+    classes, each column bitwise its binary fit, launches 3x the scalar
+    closed form; ``run_serve_loop(classifier=...)`` updating between
+    batches, every served margin bitwise the kernel's against the version
+    it reports; the CLI in subprocesses; float64 refused on the kernel
+    route.  Returns the phase's launch counts."""
+    import numpy as np
+
+    from repro_torch.api import BLOCK_CACHE, ExperimentSpec, FDSVRGClassifier, solve
+    from repro_torch.data.sparse import PaddedCSR, margins_rows
+    from repro_torch.kernels import _build
+    from repro_torch.serve import (MicroBatcher, PredictionEngine, batched_margins,
+                                   bucket_width, run_serve_loop, synthetic_request_source)
+
+    t_phase = time.perf_counter()
+    n, d = data.num_instances, data.dim
+    q = Q
+    est = dict(method="fdsvrg", workers=q, eta=cfg.eta, batch_size=cfg.batch_size,
+               inner_steps=cfg.inner_steps, outer_iters=cfg.outer_iters, seed=SEED)
+    spec = ExperimentSpec(method="fdsvrg", data=data, q=q, eta=cfg.eta,
+                          batch_size=cfg.batch_size, inner_steps=cfg.inner_steps,
+                          outer_iters=cfg.outer_iters, seed=SEED)
+    # The CLI runs in two processes of its own, beside this phase's work.
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cli_args = {"list": ["--list"], "quick": ["--config", "fdsvrg-news20", "--quick"]}
+    cli_procs = {k: subprocess.Popen([sys.executable, "-m", "repro_torch.api.cli", *a],
+                                     cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True)
+                 for k, a in cli_args.items()}
+
+    # Layout builds and row-table builds, counted where solve makes them.
+    builds = {"layouts": 0, "block_rows": 0, "layout_s": 0.0}
+    cache_get, rows_build = BLOCK_CACHE.get, _build.block_rows
+
+    def counted_get(*a, **kw):
+        cached = [b for _, b in BLOCK_CACHE.values()]
+        t0 = time.perf_counter()
+        out = cache_get(*a, **kw)
+        torch.cuda.synchronize()
+        builds["layout_s"] += time.perf_counter() - t0
+        builds["layouts"] += not any(out is b for b in cached)
+        return out
+
+    def counted_rows(*a, **kw):
+        builds["block_rows"] += 1
+        return rows_build(*a, **kw)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        builds.update(layouts=0, block_rows=0, layout_s=0.0)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, ops.launch_counts(), dict(builds)
+
+    def same(a, b) -> bool:
+        return bool(torch.equal(a.w, b.w)) and a.objectives().tolist() == b.objectives().tolist()
+
+    BLOCK_CACHE.get, _build.block_rows = counted_get, counted_rows
+    try:
+        BLOCK_CACHE.clear()
+        with call_counter(torch) as guard:
+            first, first_s, first_counts, first_builds = timed(lambda: solve(spec))
+        again, again_s, again_counts, again_builds = timed(lambda: solve(spec))
+        lazy, lazy_s, lazy_run_counts, lazy_builds = timed(
+            lambda: solve(spec.replace(lazy_updates="exact")))
+        clf = FDSVRGClassifier(**est)
+        _, fit_s, fit_counts, fit_builds = timed(lambda: clf.fit(data))
+    finally:
+        BLOCK_CACHE.get, _build.block_rows = cache_get, rows_build
+    w_main = res.w.cpu().numpy()
+    fit_bitwise = clf.coef_.tobytes() == w_main.tobytes() and \
+        [h.objective for h in clf.history_] == res.objectives().tolist()
+
+    # predict / score through kernel 1; the margins bitwise batched_margins
+    # and within MARGIN_RTOL of the CPU's plain version.
+    margins, score_s, score_counts, _ = timed(lambda: clf.decision_function(data))
+    want = batched_margins(data.indices, data.values, res.w)
+    w_cpu = res.w.cpu()
+    plain = margins_rows(data.indices, data.values, w_cpu).numpy()
+    scale = torch.sum(torch.abs(w_cpu[data.indices] * data.values), dim=-1).numpy()
+    margin_ratio = float(np.max(np.abs(margins - plain) / np.maximum(MARGIN_RTOL * scale,
+                                                                      1e-30)))
+    accuracy = clf.score(data)
+    want_acc = float(np.mean(np.where(want > 0, 1.0, -1.0) == data.labels.numpy()))
+
+    # One partial_fit: seed 1 from the fitted w, bitwise the direct solve.
+    _, pf_s, pf_counts, _ = timed(lambda: clf.partial_fit(data))
+    direct = solve(spec.replace(init_w=res.w.clone(), seed=SEED + 1, outer_iters=1))
+    per_outer = 2 * q * n + cfg.inner_steps * 2 * q * cfg.batch_size
+    rebased = [h.outer for h in clf.history_] == list(range(cfg.outer_iters + 1)) and \
+        [h.comm_scalars for h in clf.history_] == \
+        [per_outer * (t + 1) for t in range(cfg.outer_iters + 1)]
+    pf_bitwise = clf.coef_.tobytes() == direct.w.cpu().numpy().tobytes() and \
+        clf.history_[-1].objective == direct.history[0].objective
+    pf_history = {"outers": [h.outer for h in clf.history_],
+                  "comm_scalars": [h.comm_scalars for h in clf.history_]}
+
+    # One-vs-rest: 3 classes from seeded planted separators over the rows.
+    # The generator's heavy ids (stored more often than there are rows,
+    # about 80 times in every row) get no weight: their share of a row's
+    # score would set every row's class alike.
+    rng = np.random.default_rng(SEED + 31)
+    planted = rng.normal(size=(d, 3)).astype(np.float32)
+    idx_np, val_np = data.indices.numpy(), data.values.numpy()
+    planted[np.bincount(idx_np.ravel(), minlength=d) > n] = 0.0
+    y3 = np.argmax(np.einsum("rk,rkc->rc", val_np, planted[idx_np]), axis=1)
+    require(np.bincount(y3, minlength=3).min() > 0, f"front_door: classes {np.bincount(y3)}")
+    ovr = dict(est, inner_steps=FRONT_OVR_STEPS)
+    multi, multi_s, multi_counts, _ = timed(lambda: FDSVRGClassifier(**ovr).fit(data, y3))
+    columns = []
+    for j in range(3):
+        binary = FDSVRGClassifier(**ovr).fit(data, (y3 == j).astype(int))
+        columns.append(multi.coef_[j].tobytes() == binary.coef_.tobytes())
+    snaps = cfg.outer_iters + 1
+    steps = FRONT_OVR_STEPS * cfg.outer_iters
+    multi_want = expected_launches(ops, sparse_margin=3 * (snaps + steps),
+                                   logistic_grad=3 * (snaps + steps), block_scatter=3 * snaps,
+                                   prox_update=3 * q * steps)
+
+    # The interleaved serve loop: partial_fit on every 4th 64-row chunk of
+    # the request stream, each update publishing version + 1.
+    clf.inner_steps = FRONT_UPDATE_STEPS
+    engine = PredictionEngine.from_estimator(clf)
+    published = {0: engine.snapshot.w}
+    publish = engine.publish
+
+    def recording_publish(snap):
+        published[snap.version] = snap.w
+        return publish(snap)
+
+    engine.publish = recording_publish
+    fit_times = []
+    partial_fit = clf.partial_fit
+
+    def timed_partial_fit(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = partial_fit(*a, **kw)
+        torch.cuda.synchronize()
+        fit_times.append(time.perf_counter() - t0)
+        return out
+
+    clf.partial_fit = timed_partial_fit
+    requests = synthetic_request_source(dim=d, num_requests=FRONT_SERVE_REQUESTS,
+                                        nnz_lo=SERVE_NNZ[0], nnz_hi=SERVE_NNZ[1], seed=SEED)
+    report, loop_s, loop_counts, _ = timed(lambda: run_serve_loop(
+        requests, engine, MicroBatcher(max_batch=SERVE_MAX_BATCH, max_delay_s=SERVE_MAX_DELAY_S),
+        classifier=clf, update_every_chunks=FRONT_UPDATE_EVERY))
+    del clf.partial_fit
+    chunks = -(-FRONT_SERVE_REQUESTS // 64)
+    updates = chunks // FRONT_UPDATE_EVERY
+    upd = report.versions_published
+    loop_want = expected_launches(
+        ops, sparse_margin=report.num_batches + upd * (2 + FRONT_UPDATE_STEPS),
+        logistic_grad=upd * (2 + FRONT_UPDATE_STEPS), block_scatter=2 * upd,
+        prox_update=upd * q * FRONT_UPDATE_STEPS)
+    # Every served margin replayed: the rows grouped by (version, bucket
+    # width), each group one launch against the version the rows report.
+    rows = requests.materialize()
+    r_idx, r_val = rows.indices.numpy(), rows.values.numpy()
+    groups: dict = {}
+    for r in report.served:
+        keep = r_val[r.req_id] != 0.0
+        groups.setdefault((r.version_used, bucket_width(int(keep.sum()))), []).append(r)
+    served_bitwise, n_differ = True, 0
+    for (version, width), group in groups.items():
+        gi = np.zeros((len(group), width), np.int32)
+        gv = np.zeros((len(group), width), np.float32)
+        for i, r in enumerate(group):
+            keep = r_val[r.req_id] != 0.0
+            gi[i, :keep.sum()], gv[i, :keep.sum()] = r_idx[r.req_id][keep], r_val[r.req_id][keep]
+        replay = batched_margins(gi, gv, published[version])
+        got = np.array([r.margin for r in group], dtype=np.float32)
+        differ = int(np.count_nonzero(got.view(np.int32) != replay.view(np.int32)))
+        n_differ += differ
+        served_bitwise &= differ == 0
+    lat = report.latency_percentiles((50, 99))
+
+    # float64 on the kernel route is refused, at the spec and at the driver.
+    head = PaddedCSR(indices=data.indices[:64], values=data.values[:64].double(),
+                     labels=data.labels[:64].double(), dim=d)
+    refusals = {}
+    for name, make in (("spec", lambda: ExperimentSpec(method="fdsvrg", data=head, q=q)),
+                       ("estimator", lambda: FDSVRGClassifier(**dict(est, outer_iters=1))
+                        .fit(head))):
+        try:
+            make()
+            refusals[name] = None
+        except ValueError as err:
+            refusals[name] = str(err)[:80]
+
+    cli = {}
+    for k, proc in cli_procs.items():
+        out, err = proc.communicate(timeout=600)
+        cli[k] = {"rc": proc.returncode, "history_table": "final objective" in out,
+                  "done_after_s": time.perf_counter() - t_phase,
+                  "stdout_tail": out.strip().splitlines()[-3:], "stderr_tail": err[-300:]}
+    BLOCK_CACHE.clear()
+
+    line = {"phase": "front_door", "entry": "repro_torch.api: solve(ExperimentSpec), "
+                                            "FDSVRGClassifier, run_serve_loop(classifier=), "
+                                            "python -m repro_torch.api.cli",
+            "d": d, "N": n, "q": q, "u": cfg.batch_size, "eta": cfg.eta,
+            "outers": cfg.outer_iters, "inner_steps": cfg.inner_steps,
+            "solve": {"objectives": first.objectives().tolist(),
+                      "bitwise_main_path": same(first, res), "launches": first_counts,
+                      "expected_launches": counts, "index_adds": guard.index_adds,
+                      "wall_s": first_s, "builds": first_builds},
+            "solve_again": {"bitwise_first": same(again, first), "launches": again_counts,
+                            "wall_s": again_s, "builds": again_builds,
+                            "setup_s": again_builds["layout_s"]},
+            "solve_lazy_exact": {"bitwise_dense": same(lazy, res),
+                                 "bitwise_main_lazy_run": same(lazy, lazy_res),
+                                 "launches": lazy_run_counts, "wall_s": lazy_s,
+                                 "builds": lazy_builds},
+            "fit": {"coef_bitwise_main_path": fit_bitwise, "launches": fit_counts,
+                    "wall_s": fit_s, "builds": fit_builds},
+            "decision_function": {"bitwise_batched_margins": margins.tobytes() == want.tobytes(),
+                                  "launches": score_counts, "wall_s": score_s,
+                                  "max_err_over_tolerance_vs_cpu": margin_ratio,
+                                  "accuracy": accuracy, "accuracy_from_margins": want_acc},
+            "partial_fit": {"seed": SEED + 1, "bitwise_direct_solve": pf_bitwise,
+                            "history_rebased": rebased, **pf_history,
+                            "launches": pf_counts, "wall_s": pf_s},
+            "one_vs_rest": {"classes": 3, "class_counts": np.bincount(y3).tolist(),
+                            "inner_steps": FRONT_OVR_STEPS,
+                            "columns_bitwise_binary_fits": columns, "launches": multi_counts,
+                            "expected_launches": multi_want, "wall_s": multi_s,
+                            "objectives": [h.objective for h in multi.history_]},
+            "serve_loop": {"requests": report.num_requests, "chunks": chunks,
+                           "update_every_chunks": FRONT_UPDATE_EVERY,
+                           "update_inner_steps": FRONT_UPDATE_STEPS,
+                           "versions_published": upd, "updates_skipped": report.updates_skipped,
+                           "batches": report.num_batches,
+                           "staleness_histogram": report.staleness_histogram(),
+                           "served_bitwise_reported_version": served_bitwise,
+                           "n_differ": n_differ, "launches": loop_counts,
+                           "expected_launches": loop_want,
+                           "predictions_per_s": report.predictions_per_s, **lat,
+                           "serve_wall_s": report.serve_wall_s,
+                           "total_wall_s": report.total_wall_s,
+                           "partial_fit_ms": [t * 1e3 for t in fit_times]},
+            "float64_refused": refusals, "cli": cli,
+            "phase_wall_s": time.perf_counter() - t_phase}
+    emit(line)
+    require(same(first, res), f"front_door: solve is not bitwise the main path: {line['solve']}")
+    require(first_counts == counts == again_counts,
+            f"front_door: solve launches {first_counts} / {again_counts} != {counts}")
+    require(guard.index_adds == 0, f"front_door: {guard.index_adds} index_add_ calls")
+    require(first_builds["layouts"] == 1 and again_builds["layouts"] == 0
+            and again_builds["block_rows"] == 0 and lazy_builds["block_rows"] == 0,
+            f"front_door: layouts built {first_builds} / {again_builds} / {lazy_builds}")
+    require(same(again, first), "front_door: two solves differ")
+    require(same(lazy, res) and lazy_run_counts == lazy_counts,
+            f"front_door: exact lazy through the spec: {line['solve_lazy_exact']}")
+    require(fit_bitwise and fit_counts == counts,
+            f"front_door: FDSVRGClassifier.fit: {line['fit']}")
+    require(margins.tobytes() == want.tobytes() and margin_ratio <= 1.0
+            and score_counts == expected_launches(ops, sparse_margin=1)
+            and accuracy == want_acc, f"front_door: decision_function {line['decision_function']}")
+    require(pf_bitwise and rebased, f"front_door: partial_fit {line['partial_fit']}")
+    require(all(columns) and multi_counts == multi_want,
+            f"front_door: one-vs-rest {line['one_vs_rest']}")
+    require(upd + report.updates_skipped == updates and upd == len(fit_times)
+            and sorted(published) == list(range(upd + 1)) and upd > 0,
+            f"front_door: serve loop versions {line['serve_loop']}")
+    require(report.num_requests == FRONT_SERVE_REQUESTS and served_bitwise,
+            f"front_door: served margins vs their versions: {n_differ} differ")
+    require(loop_counts == loop_want,
+            f"front_door: serve loop launches {loop_counts} != {loop_want}")
+    require(all(v is not None and "float32" in v for v in refusals.values()),
+            f"front_door: float64 on the kernel route: {refusals}")
+    require(all(c["rc"] == 0 for c in cli.values()) and cli["quick"]["history_table"],
+            f"front_door: the CLI {cli}")
+    return {"solve": first_counts, "lazy": lazy_run_counts}
+
+
 def run() -> dict:
     import torch
 
@@ -2623,7 +2915,13 @@ def run() -> dict:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
-    # 19. The kernels line.  Launches: sparse_margin, logistic_grad,
+    # 19. The front door: solve, the estimator, the interleaved serve loop
+    # and the CLI at full-width news20, on the main path's kernels.
+    front = front_door(torch, ops, data, res, cfg, counts, lazy_counts, lazy_res)
+    solver_launches["front_door"] = {k: front["solve"][k] + front["lazy"][k]
+                                     for k in front["solve"]}
+
+    # 20. The kernels line.  Launches: sparse_margin, logistic_grad,
     # block_scatter and prox_update from the dense main path (sparse_margin's,
     # logistic_grad's and lazy_catchup's times at one step over all 8
     # blocks, lazy_flush's at one epoch's flush, their launches on the path), the
@@ -2643,7 +2941,8 @@ def run() -> dict:
     flush_row = flush_rows[(reg.name, "unmasked")]
 
     def by_path(kernel):
-        """The kernel's launches on each solver path that launched it."""
+        """The kernel's launches on each solver path (and the front door's
+        two solves) that launched it."""
         return {m: c[kernel] for m, c in solver_launches.items() if c[kernel]}
 
     def lazy_entry(name, line, launches, shape):
@@ -2651,7 +2950,8 @@ def run() -> dict:
         return {"name": name, "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/lazy_update.cu",
                 "replaces": f"src/repro/kernels/lazy_update.py:{line}",
-                "launches": launches, "max_abs_err": row["max_abs_err"],
+                "launches": launches, "launches_by_path": by_path(name),
+                "max_abs_err": row["max_abs_err"],
                 "ms": row["kernel_ms"], "host_ms": row["host_ms"], "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                 "library_ms": None, "shape": shape}
@@ -2710,6 +3010,7 @@ def run() -> dict:
          "source": "src/repro_torch/kernels/csrc/lazy_update.cu",
          "replaces": "src/repro/kernels/lazy_update.py:125",
          "launches": lazy_counts["lazy_catchup"],
+         "launches_by_path": by_path("lazy_catchup"),
          "max_abs_err": max(r["max_abs_err"] for r in step_ck_rows.values()),
          "ms": ck_step["kernel_ms"], "host_ms": ck_step["host_ms"],
          "plain_ms": ck_step["plain_ms"], "bound_ms": ck_step["bound_ms"],
@@ -2723,6 +3024,7 @@ def run() -> dict:
          "source": "src/repro_torch/kernels/csrc/lazy_update.cu",
          "replaces": "src/repro/kernels/lazy_update.py:224",
          "launches": lazy_counts["lazy_flush"],
+         "launches_by_path": by_path("lazy_flush"),
          "max_abs_err": max(r["max_abs_err"] for r in flush_rows.values()),
          "ms": flush_row["kernel_ms"], "host_ms": flush_row["host_ms"],
          "plain_ms": flush_row["plain_ms"], "bound_ms": flush_row["bound_ms"],

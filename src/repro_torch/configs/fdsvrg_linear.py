@@ -7,8 +7,7 @@ coordinate descent for l1-regularized linear classifiers — so alongside
 the L2 presets there are L1 / elastic-net variants solved with
 FD-Prox-SVRG (same communication, block-local prox).
 
-Port of ``repro.configs.fdsvrg_linear``; ``LinearConfig.to_spec`` comes
-with the front-door slice (``repro.api`` is not ported yet).
+Port of ``repro.configs.fdsvrg_linear``.
 """
 
 from __future__ import annotations
@@ -33,6 +32,31 @@ class LinearConfig:
 
     def regularizer(self) -> losses.Regularizer:
         return losses.Regularizer(self.reg, self.lam, self.lam2)
+
+    def to_spec(self, method: str = "fdsvrg", **overrides):
+        """This config as an :class:`repro_torch.api.ExperimentSpec` for any
+        registered method — the bridge from the paper's presets to the
+        one front door (``solve(cfg.to_spec(method="dsvrg"))``).
+
+        Keyword ``overrides`` replace any spec field (e.g.
+        ``outer_iters=2, inner_steps=300, device="cpu"``); the config's
+        own eta/batch/workers are the paper's operating point, not the
+        registry's scaled-trajectory ``"paper"`` defaults.
+        """
+        from repro_torch.api.spec import ExperimentSpec  # deferred: configs load early
+
+        kw = dict(
+            method=method,
+            dataset=self.dataset,
+            loss=self.loss,
+            reg=self.regularizer(),
+            q=self.workers,
+            eta=self.eta,
+            batch_size=self.batch_size,
+            outer_iters=self.outer_iters,
+        )
+        kw.update(overrides)
+        return ExperimentSpec(**kw)
 
 
 def get_config(name: str) -> LinearConfig:

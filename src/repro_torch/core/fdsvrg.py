@@ -676,6 +676,7 @@ def fdsvrg_worker_simulation(
     elif block_data.partition.bounds != partition.bounds:
         raise ValueError("block_data was built for a different partition")
     block_data = block_data.to(device)
+    _check_kernel_dtype(block_data.values[0].dtype, use_kernels)
     labels = block_data.labels
     block_dims = block_data.block_dims
     bounds = _bounds(block_dims)

@@ -121,7 +121,12 @@ class BlockCSR:
         return self._block_rows[key]
 
     def to(self, device: torch.device | str) -> "BlockCSR":
-        """The same layout with every tensor on ``device``."""
+        """The same layout with every tensor on ``device``: ``self`` when
+        they all lie there already, so its ``block_rows`` table is kept."""
+        device = torch.device(device)
+        tensors = (*self.indices, *self.values, self.labels, *(self.nnz_col or ()))
+        if all(_same_device(t.device, device) for t in tensors):
+            return self
         return dataclasses.replace(
             self,
             indices=tuple(i.to(device) for i in self.indices),
@@ -201,6 +206,13 @@ class BlockCSR:
 
     def nnz_total(self) -> int:
         return int(sum(int(torch.count_nonzero(v)) for v in self.values))
+
+
+def _same_device(have: torch.device, want: torch.device) -> bool:
+    """``have`` is ``want``, reading a bare ``cuda`` as the current card."""
+    if want.type == "cuda" and want.index is None:
+        want = torch.device("cuda", torch.cuda.current_device())
+    return have == want
 
 
 def _count_cols(indices: np.ndarray, values: np.ndarray, dim: int) -> np.ndarray:

@@ -268,6 +268,7 @@ class SVRGRule(UpdateRule):
     def validate(self, ctx: RuleContext) -> None:
         super().validate(ctx)
         _check_lazy(self.lazy_updates)
+        _check_kernel_dtype(ctx.dtype, self.use_kernels)
         if ctx.num_outputs > 1 and self.lazy_updates:
             raise ValueError(
                 "multi-output labels run the dense inner step only: "

@@ -35,12 +35,6 @@ from repro_torch.core.driver import resolve_device
 from repro_torch.data.sparse import margins_rows
 from repro_torch.kernels import ops
 
-_FRONT_DOOR = (
-    "the fitted estimator (FDSVRGClassifier) is not ported yet: it comes "
-    "with the front door, ROADMAP queue 1 item 7"
-)
-
-
 def batched_margins(
     indices,
     values,
@@ -93,8 +87,8 @@ def batched_margins(
 class WeightSnapshot:
     """A frozen model version: ``w`` is ``[d]`` (binary) or ``[d, k]``
     (one-vs-rest), ``version`` the monotone counter the engine orders
-    publishes by.  Build it with :meth:`from_dense` or :meth:`from_blocks`,
-    which copy ``w`` onto the serving device."""
+    publishes by.  Build it with :meth:`from_dense`, :meth:`from_blocks` or
+    :meth:`from_estimator`, which copy ``w`` onto the serving device."""
 
     w: torch.Tensor
     version: int
@@ -144,8 +138,18 @@ class WeightSnapshot:
         return cls(w=torch.cat([b.to(device) for b in blocks], dim=0), version=version)
 
     @classmethod
-    def from_estimator(cls, clf, version: int) -> "WeightSnapshot":
-        raise NotImplementedError(_FRONT_DOOR)
+    def from_estimator(
+        cls, clf, version: int, *, device: torch.device | str | None = None
+    ) -> "WeightSnapshot":
+        """From a fitted ``FDSVRGClassifier``: sklearn's ``coef_`` is
+        ``[k, d]`` for one-vs-rest, the engine runs ``[d, k]``.  ``device``
+        defaults to the estimator's (``cuda`` when that is ``None``)."""
+        clf._check_fitted()
+        coef = np.asarray(clf.coef_)
+        return cls.from_dense(
+            np.ascontiguousarray(coef.T) if coef.ndim == 2 else coef, version,
+            device=clf.device if device is None else device,
+        )
 
 
 class PredictionEngine:
@@ -171,7 +175,10 @@ class PredictionEngine:
     @classmethod
     def from_estimator(cls, clf, *, use_kernels: bool = True,
                        version: int = 0) -> "PredictionEngine":
-        raise NotImplementedError(_FRONT_DOOR)
+        """An engine serving a fitted ``FDSVRGClassifier``'s ``coef_`` as
+        ``version``, on the estimator's device."""
+        return cls(WeightSnapshot.from_estimator(clf, version),
+                   use_kernels=use_kernels)
 
     @property
     def snapshot(self) -> WeightSnapshot:

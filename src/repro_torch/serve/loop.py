@@ -1,16 +1,20 @@
-"""The serve loop: request traffic micro-batched onto a frozen model.
+"""The serve loop: inference traffic interleaved with online updates.
 
-Port of ``repro.serve.loop`` in its frozen-model mode
-(``classifier=None``).  Requests stream in (the rows of a
+Port of ``repro.serve.loop``.  Requests stream in (the rows of a
 :class:`~repro_torch.data.pipeline.DataSource`, each trimmed to its
 stored entries so nnz varies per request), are micro-batched by the
 :class:`~repro_torch.serve.batching.MicroBatcher` and scored by the
-:class:`~repro_torch.serve.engine.PredictionEngine`.  A batch pins the
-engine's snapshot when it is flushed and is scored with that snapshot;
-per-request ``staleness`` is the number of versions published between
-pin and serve.  The interleaved online-update mode (``partial_fit`` on
-the stream) needs the fitted estimator and comes with the front door,
-ROADMAP queue 1 item 7.
+:class:`~repro_torch.serve.engine.PredictionEngine`; with a classifier,
+the same traffic feeds ``FDSVRGClassifier.partial_fit`` in chunks, and
+each update publishes a new :class:`~repro_torch.serve.engine.
+WeightSnapshot` under the monotone version counter.
+
+**The staleness contract.**  A batch pins the engine's snapshot when it
+is flushed and is scored with that pinned snapshot even if a publish
+lands before its compute runs.  Per-request ``staleness`` is the number
+of versions published between pin and serve.  The loop is
+single-threaded and deterministic: chunk t's flushed batches are scored
+*after* chunk t's update publishes, so they are served at staleness 1.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import torch
 from repro_torch.data.pipeline import ArraySource, DataSource, as_source
 from repro_torch.data.sparse import PaddedCSR
 from repro_torch.serve.batching import Batch, MicroBatcher
-from repro_torch.serve.engine import PredictionEngine
+from repro_torch.serve.engine import PredictionEngine, WeightSnapshot
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,9 +49,9 @@ class ServeReport:
     served: list[ServedRequest]
     num_batches: int
     serve_wall_s: float  # engine compute time only
-    total_wall_s: float  # whole loop
+    total_wall_s: float  # whole loop, training included
     versions_published: int
-    updates_skipped: int
+    updates_skipped: int  # single-class chunks the trainer skipped
     bucket_counts: dict[tuple[int, int], int]
     flush_causes: dict[str, int]
     compiled_shapes: int
@@ -93,26 +97,43 @@ def _chunk_requests(chunk):
         yield idx[r, m], val[r, m]
 
 
+def _chunk_padded(chunk, dim: int) -> PaddedCSR:
+    return PaddedCSR(
+        indices=torch.as_tensor(chunk.indices),
+        values=torch.as_tensor(chunk.values),
+        labels=torch.as_tensor(chunk.labels),
+        dim=dim,
+    )
+
+
 def run_serve_loop(
     source,
     engine: PredictionEngine,
     batcher: MicroBatcher,
     *,
     classifier=None,
+    update_every_chunks: int = 1,
+    train_outer_iters: int = 1,
     chunk_rows: int = 64,
     limit_rows: int | None = None,
     clock=time.perf_counter,
 ) -> ServeReport:
-    """Drive ``source``'s rows through ``batcher`` and ``engine`` against
-    the engine's frozen snapshot.  ``classifier`` must be ``None``: the
-    interleaved updates come with ROADMAP queue 1 item 7."""
-    if classifier is not None:
-        raise NotImplementedError(
-            "run_serve_loop serves a frozen model only (classifier=None): the "
-            "interleaved partial_fit updates need the fitted estimator, which "
-            "comes with the front door, ROADMAP queue 1 item 7"
-        )
+    """Drive ``source``'s rows through ``batcher`` and ``engine``,
+    interleaving ``classifier.partial_fit`` every ``update_every_chunks``
+    chunks.
+
+    ``classifier=None`` serves a frozen model.  With a classifier (it must
+    be fitted; the engine starts from its snapshot), each update trains on
+    the chunk's rows with their stream labels and publishes
+    ``engine.version + 1`` on the engine's device; a chunk whose labels
+    are all one class is skipped (counted in ``updates_skipped``).
+    """
     source = as_source(source)
+    if classifier is not None and not classifier.is_fitted:
+        raise ValueError(
+            "run_serve_loop needs a fitted classifier (its coef_ is the "
+            "version the engine starts serving)"
+        )
     dim = source.stats().dim
     if engine.snapshot.dim != dim:
         raise ValueError(
@@ -123,6 +144,8 @@ def run_serve_loop(
     served: list[ServedRequest] = []
     serve_wall = 0.0
     num_batches = 0
+    versions_published = 0
+    updates_skipped = 0
     rows_seen = 0
 
     def score(batches: list[Batch]) -> None:
@@ -152,13 +175,33 @@ def run_serve_loop(
         return batches
 
     t_start = clock()
-    for chunk in source.chunks(chunk_rows):
+    for ci, chunk in enumerate(source.chunks(chunk_rows)):
         if limit_rows is not None and rows_seen >= limit_rows:
             break
         rows_seen += chunk.indices.shape[0]
+        # 1) this chunk's rows become requests
         for idx, val in _chunk_requests(chunk):
             batcher.submit(idx, val)
-        score(pin(batcher.ready()))
+        # 2) flush what's ready, pinning the snapshot they see
+        pending = pin(batcher.ready())
+        # 3) the online update: train on this chunk, publish atomically;
+        #    the pinned batches are scored after it, at staleness 1.
+        if classifier is not None and (ci + 1) % update_every_chunks == 0:
+            if np.unique(np.asarray(chunk.labels)).size < 2:
+                updates_skipped += 1
+            else:
+                classifier.partial_fit(
+                    _chunk_padded(chunk, dim), outer_iters=train_outer_iters
+                )
+                engine.publish(
+                    WeightSnapshot.from_estimator(
+                        classifier, engine.version + 1,
+                        device=engine.snapshot.device,
+                    )
+                )
+                versions_published += 1
+        # 4) serve the in-flight batches
+        score(pending)
     # end of stream: deadline-flush whatever is left, then drain
     score(pin(batcher.ready()))
     score(pin(batcher.drain()))
@@ -169,8 +212,8 @@ def run_serve_loop(
         num_batches=num_batches,
         serve_wall_s=serve_wall,
         total_wall_s=total_wall,
-        versions_published=0,
-        updates_skipped=0,
+        versions_published=versions_published,
+        updates_skipped=updates_skipped,
         bucket_counts=dict(batcher.bucket_counts),
         flush_causes=dict(batcher.flush_causes),
         compiled_shapes=len(engine.compiled_shapes),

@@ -28,6 +28,7 @@ there, at u in {1, 8, 64} (64 rows fill several of the catch-up's
 """
 
 import ctypes
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -261,12 +262,16 @@ def test_block_rows_layout_matches_the_kernels_struct():
 
 
 def test_copies_of_a_layout_keep_their_own_block_rows():
-    """The BlockRows hold raw pointers, so .to() and dataclasses.replace
-    never pass the cache on (the snapshot index, pointer-free, is shared)."""
+    """The BlockRows hold raw pointers, so the copies .to() and
+    dataclasses.replace make never pass the cache on (the snapshot index,
+    pointer-free, is shared); .to() the layout's own device makes no copy,
+    so its cache is kept."""
     bd = _layout(3)
-    copy = bd.to("cpu")
-    assert copy._block_rows is not bd._block_rows
-    assert copy._snapshot_index is bd._snapshot_index
+    assert bd.to("cpu") is bd
+    for copy in (bd.to("meta"), dataclasses.replace(bd, labels=bd.labels.clone())):
+        assert copy is not bd
+        assert copy._block_rows is not bd._block_rows
+        assert copy._snapshot_index is bd._snapshot_index
 
 
 # ---------------------------------------------------------------------------

@@ -179,9 +179,12 @@ def test_snapshots_copy_and_serve_like_reference(w):
         t_engine.WeightSnapshot.from_blocks([w[:4], w[4:, None]], 0, device="cpu")
     with pytest.raises(ValueError, match=r"\[d\] or \[d, k\]"):
         t_engine.WeightSnapshot(w=torch.zeros(2, 2, 2), version=0)
-    for build in (lambda: t_engine.WeightSnapshot.from_estimator(None, 0),
-                  lambda: t_engine.PredictionEngine.from_estimator(None)):
-        with pytest.raises(NotImplementedError, match="item 7"):
+    from repro_torch.api import FDSVRGClassifier
+
+    unfitted = FDSVRGClassifier(device="cpu")
+    for build in (lambda: t_engine.WeightSnapshot.from_estimator(unfitted, 0),
+                  lambda: t_engine.PredictionEngine.from_estimator(unfitted)):
+        with pytest.raises(ValueError, match="not fitted"):
             build()
 
 
@@ -269,9 +272,11 @@ def test_frozen_serve_loop_matches_reference(streams, w, source_kind):
 
 def test_serve_loop_refusals(streams, w):
     engine = t_engine.PredictionEngine(t_engine.WeightSnapshot.from_dense(w, 0, device="cpu"))
-    with pytest.raises(NotImplementedError, match="item 7"):
+    from repro_torch.api import FDSVRGClassifier
+
+    with pytest.raises(ValueError, match="fitted"):
         t_loop.run_serve_loop(streams[1], engine, t_batching.MicroBatcher(),
-                              classifier=object())
+                              classifier=FDSVRGClassifier(device="cpu"))
     small = t_engine.PredictionEngine(
         t_engine.WeightSnapshot.from_dense(np.ones(7, np.float32), 0, device="cpu"))
     with pytest.raises(ValueError, match="dim"):
