@@ -82,7 +82,14 @@ profiled loop's idle share, the margin kernel timed at (256, 64) and
 ``FaultyBackend`` (drops and stragglers, then a crash at outer 1 under a
 ``RecoveryPolicy``: the meter identity exact, bitwise the fault-free
 run) and resumes a checkpointed 2-outer run to 3 outers, bitwise the
-uninterrupted run.
+uninterrupted run.  Then the front door (``front_door``), and the
+multi-device driver (``sharded_path``): 8 gloo ranks on the card, one a
+feature block (``spawn_ranks`` -> ``run_fdsvrg_sharded``), at the main
+path's configuration cut to 500 inner steps an outer, the butterfly run
+twice bit for bit ``run_fdsvrg(q=8)`` at that cut, a psum run within a
+stated tolerance, ``solve(ExperimentSpec(mesh=))`` bitwise, every rank's
+launches and meter exact; then one NCCL rank, bitwise ``run_fdsvrg(q=1)``,
+and one NCCL rank a card where the host has several.
 Each phase prints one JSON line; the last line is the result object
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 without printing it, as does a machine without a CUDA device or a
@@ -1305,6 +1312,406 @@ def front_door(torch, ops, data, res, cfg, counts, lazy_counts, lazy_res) -> dic
     require(all(c["rc"] == 0 for c in cli.values()) and cli["quick"]["history_table"],
             f"front_door: the CLI {cli}")
     return {"solve": first_counts, "lazy": lazy_run_counts}
+
+
+SHARDED_LIMIT_S = 180.0  # the sharded_path phase's own time limit
+SHARDED_RANKS = Q  # gloo ranks on the one card: one a feature block
+# Inner steps per outer of the sharded runs (the main path's INNER_STEPS cut
+# for time: 8 ranks' contexts take turns on the one card, about 5 ms a step
+# at M = 2,000 on an H100 80GB HBM3 at 700 W), held against their own
+# run_fdsvrg at the same cut.
+SHARDED_STEPS = 500
+
+
+def _load_block(torch, blockdir: str, tag: str, l: int, s: dict):
+    """Block ``l`` of layout ``tag`` from the files the parent wrote, as a
+    one-block layout on this rank's card."""
+    import numpy as np
+
+    from repro_torch.core.partition import FeaturePartition
+    from repro_torch.data.block_csr import BlockCSR
+
+    d_l = s["block_dims"][tag][l]
+    idx = torch.from_numpy(np.load(os.path.join(blockdir, f"{tag}_idx{l}.npy")))
+    val = torch.from_numpy(np.load(os.path.join(blockdir, f"{tag}_val{l}.npy")))
+    labels = torch.from_numpy(np.load(os.path.join(blockdir, "labels.npy")))
+    return BlockCSR(partition=FeaturePartition(dim=d_l, bounds=(0, d_l)), indices=(idx,),
+                    values=(val,), labels=labels, dim=d_l, nnz_max=s["nnz_max"]).to(
+        torch.device("cuda", torch.cuda.current_device()))
+
+
+def _sharded_run(torch, mesh, block, s: dict, mode: str, counted: bool = False,
+                 timed: bool = False) -> dict:
+    """One ``run_fdsvrg_sharded`` on this rank, from launch counts of 0 and
+    a barrier: its wall seconds, launches, staged collectives, seconds in
+    the collectives (a ``timed`` backend's; else None), ``index_add_``
+    calls (under ``call_counter`` when ``counted``), the digests of the
+    gathered w and of this rank's final s0 (the snapshot recomputed at w),
+    and the result itself."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from repro_torch.core.fdsvrg_shardmap import (
+        FDSVRGShardedConfig,
+        make_fullgrad,
+        run_fdsvrg_sharded,
+    )
+    from repro_torch.dist import ShardMapBackend
+    from repro_torch.kernels import ops
+
+    cfg = FDSVRGShardedConfig(tree_mode=mode, **s["cfg"])
+    backend = ShardMapBackend(mesh=mesh, tree_mode=mode, timed=timed)
+    counter = call_counter(torch)
+    torch.cuda.synchronize()
+    dist.barrier()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    if counted:
+        with counter:
+            res = run_fdsvrg_sharded(None, mesh, cfg, ("model",), outer_iters=s["outers"],
+                                     seed=s["seed"], backend=backend, block=block,
+                                     device=block.device)
+    else:
+        res = run_fdsvrg_sharded(None, mesh, cfg, ("model",), outer_iters=s["outers"],
+                                 seed=s["seed"], backend=backend, block=block,
+                                 device=block.device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, staged = ops.launch_counts(), backend.staged
+    coll_s = backend.collective_s if timed else None
+    rank = backend.device_worker_id()
+    lo = sum(s["block_dims"][s["tag"]][:rank])
+    _, s0 = make_fullgrad(mesh, cfg, ("model",), backend)(
+        res.w[lo:lo + block.dim].contiguous(), block)
+
+    def digest(t):
+        return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+
+    return {"wall_s": wall, "steps_per_s": s["outers"] * s["cfg"]["inner_steps"] / wall,
+            "collective_s": coll_s, "collective_share": None if coll_s is None else coll_s / wall,
+            "staged": staged,
+            "launches": launches, "index_adds": counter.index_adds if counted else None,
+            "w_sha": digest(res.w), "s0_sha": digest(s0),
+            "objectives": res.objectives().tolist(), "scalars": res.meter.total_scalars,
+            "comm_scalars": [h.comm_scalars for h in res.history],
+            "modeled_s": backend.modeled_time_s, "result": res}
+
+
+def _sharded_rank(mesh, blockdir: str, s: dict) -> dict:
+    """One gloo rank of ``sharded_path``: its block from the parent's files;
+    the butterfly run twice (the second timed and under ``call_counter``),
+    a psum run, again timed, and ``solve(mesh=)``.  Rank 0 returns every
+    rank's summary and its own gathered w of each run."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import api
+    from repro_torch.core import losses
+    from repro_torch.data.sparse import PaddedCSR
+
+    rank, q = dist.get_rank(), mesh.size()
+    t0 = time.perf_counter()
+    block = _load_block(torch, blockdir, s["tag"], rank, s)
+    load_s = time.perf_counter() - t0
+    runs = {"butterfly": _sharded_run(torch, mesh, block, s, "butterfly"),
+            "butterfly_again": _sharded_run(torch, mesh, block, s, "butterfly", counted=True,
+                                            timed=True),
+            "psum": _sharded_run(torch, mesh, block, s, "psum"),
+            "psum_timed": _sharded_run(torch, mesh, block, s, "psum", timed=True)}
+    # The front door: each rank hands solve the whole data set and the mesh.
+    full = PaddedCSR(
+        indices=torch.from_numpy(np.load(os.path.join(blockdir, "q1_idx0.npy"))),
+        values=torch.from_numpy(np.load(os.path.join(blockdir, "q1_val0.npy"))),
+        labels=torch.from_numpy(np.load(os.path.join(blockdir, "labels.npy"))),
+        dim=s["cfg"]["dim"])
+    c = s["cfg"]
+    dist.barrier()
+    t0 = time.perf_counter()
+    res = api.solve(api.ExperimentSpec(
+        method="fdsvrg_sharded", data=full, mesh=mesh, tree_mode="butterfly",
+        reg=losses.l2(c["lam"]), eta=c["eta"], batch_size=c["batch_size"],
+        inner_steps=c["inner_steps"], outer_iters=s["outers"], seed=s["seed"],
+        device=block.device))
+    torch.cuda.synchronize()
+    runs["solve"] = {"wall_s": time.perf_counter() - t0, "objectives": res.objectives().tolist(),
+                     "w_sha": hashlib.sha256(res.w.cpu().numpy().tobytes()).hexdigest(),
+                     "result": res}
+    mine = {"rank": rank, "load_s": load_s,
+            "runs": {k: {f: v for f, v in r.items() if f != "result"} for k, r in runs.items()}}
+    every = [None] * q
+    dist.all_gather_object(every, mine)
+    return {"ranks": every,
+            "w": {k: r["result"].w.cpu() for k, r in runs.items()
+                  if k not in ("butterfly_again", "psum_timed")}}
+
+
+def _nccl_rank(mesh, blockdir: str, s: dict) -> dict:
+    """One rank of an NCCL group (one card a rank): psum and butterfly
+    runs of layout ``s["tag"]``, each again timed; rank 0 returns its
+    gathered w of each untimed run and every rank's summary."""
+    import torch
+    import torch.distributed as dist
+
+    block = _load_block(torch, blockdir, s["tag"], dist.get_rank(), s)
+    runs = {mode + timed * "_timed": _sharded_run(torch, mesh, block, s, mode, timed=timed)
+            for timed in (False, True) for mode in ("psum", "butterfly")}
+    mine = {mode: {f: v for f, v in r.items() if f != "result"} for mode, r in runs.items()}
+    every = [None] * mesh.size()
+    dist.all_gather_object(every, mine)
+    return {"ranks": every, "w": {mode: runs[mode]["result"].w.cpu()
+                                  for mode in ("psum", "butterfly")}}
+
+
+def sharded_path(torch, ops, data, bd8_cpu, bd8, bd1, main_cfg, loss, reg, workdir,
+                 parts=("gloo", "nccl", "nccl_cards")) -> dict:
+    """The multi-device driver at full-width news20 (q = 8, u = 1), the
+    main path's configuration cut to ``SHARDED_STEPS`` inner steps an
+    outer: 8 gloo ranks on the one card (``spawn_ranks``), each holding
+    its own feature block, each collective staged through host memory.
+    Butterfly twice: w and every objective bit for bit ``run_fdsvrg(q=8,
+    use_kernels=True)`` at the same cut and seed, the two runs alike,
+    every rank's s0 alike and that run's; meters the closed forms; each
+    rank's launches the closed forms, no ``index_add_``; psum within
+    ``RUN_RTOL`` / ``RUN_W_RTOL``; ``solve(mesh=)`` bitwise the butterfly
+    run.  Then one NCCL rank on the card (psum and butterfly, both bitwise
+    ``run_fdsvrg(q=1)``), and an NCCL rank per card where the host has two
+    or more.  ``parts`` picks among these three.  Returns the summed
+    per-rank launches of the first butterfly run (the kernels line's
+    ``sharded`` path), or nothing without ``"gloo"``."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core.fdsvrg import run_fdsvrg
+    from repro_torch.core.partition import balanced
+    from repro_torch.data.block_csr import BlockCSR
+    from repro_torch.dist.launch import RankError, spawn_ranks
+
+    t_phase = time.perf_counter()
+    deadline = t_phase + SHARDED_LIMIT_S
+    cfg = dataclasses.replace(main_cfg, inner_steps=min(SHARDED_STEPS, main_cfg.inner_steps))
+    n, u, m = data.num_instances, cfg.batch_size, cfg.inner_steps
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    ref8 = run_fdsvrg(None, balanced(data.dim, Q), loss, reg, cfg, block_data=bd8,
+                      use_kernels=True)
+    torch.cuda.synchronize()
+    parent_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    blockdir = os.path.join(workdir, "sharded_blocks")
+    os.makedirs(blockdir)
+    layouts = {"q8": bd8_cpu, "q1": None}
+    cards = torch.cuda.device_count()
+    q_nccl = min(Q, 1 << (cards.bit_length() - 1)) if cards >= 2 else 0
+    if q_nccl:
+        layouts[f"q{q_nccl}"] = BlockCSR.from_padded(data, balanced(data.dim, q_nccl))
+    np.save(os.path.join(blockdir, "labels.npy"), data.labels.cpu().numpy())
+    np.save(os.path.join(blockdir, "q1_idx0.npy"), data.indices.cpu().numpy())
+    np.save(os.path.join(blockdir, "q1_val0.npy"), data.values.cpu().numpy())
+    block_dims = {"q1": [data.dim]}
+    for tag, layout in layouts.items():
+        if layout is None:
+            continue
+        block_dims[tag] = list(layout.block_dims)
+        for l in range(layout.num_blocks):
+            np.save(os.path.join(blockdir, f"{tag}_idx{l}.npy"), layout.indices[l].numpy())
+            np.save(os.path.join(blockdir, f"{tag}_val{l}.npy"), layout.values[l].numpy())
+    settings = {"cfg": dict(dim=data.dim, num_instances=n, nnz_max=data.nnz_max, eta=cfg.eta,
+                            inner_steps=m, batch_size=u, loss_name=loss.name,
+                            reg_name=reg.name, lam=reg.lam, lam2=reg.lam2),
+                "outers": cfg.outer_iters, "seed": cfg.seed, "nnz_max": data.nnz_max,
+                "block_dims": block_dims}
+    write_s = time.perf_counter() - t0
+
+    def spawn(q, fn, tag, backend, device):
+        left = deadline - time.perf_counter()
+        require(left > 0, f"sharded_path: out of its {SHARDED_LIMIT_S:g} s")
+        t0 = time.perf_counter()
+        try:
+            out = spawn_ranks(q, fn, blockdir, dict(settings, tag=tag), backend=backend,
+                              device=device, timeout_s=left)
+        except RankError as err:
+            print(f"sharded_path: {backend} ranks failed; their tracebacks' tail:\n"
+                  f"{str(err)[-4000:]}", file=sys.stderr, flush=True)
+            raise SmokeFailure(f"sharded_path: {q} {backend} ranks failed") from err
+        return out, time.perf_counter() - t0
+
+    per_rank = expected_launches(ops, sparse_margin=(cfg.outer_iters + 1) + m * cfg.outer_iters,
+                                 logistic_grad=(cfg.outer_iters + 1) + m * cfg.outer_iters,
+                                 block_scatter=cfg.outer_iters + 1,
+                                 prox_update=m * cfg.outer_iters)
+    per_outer = 2 * Q * n + m * 2 * Q * u
+    ref_s0 = ops.snapshot_margins(bd8, ref8.w)
+
+    def sha(t):
+        import hashlib
+
+        return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+
+    launches = {}
+    if "gloo" in parts:
+        # 8 gloo ranks on the one card.
+        gloo, gloo_s = spawn(SHARDED_RANKS, _sharded_rank, "q8", "gloo", "cuda:0")
+        ranks = gloo["ranks"]
+        fly = gloo["w"]["butterfly"]
+        ref_objs = ref8.objectives().tolist()
+        runs0 = ranks[0]["runs"]
+        bitwise_main = bool(torch.equal(fly, ref8.w.cpu())) and \
+            runs0["butterfly"]["objectives"] == ref_objs
+        twice = all(r["runs"]["butterfly"]["w_sha"] == r["runs"]["butterfly_again"]["w_sha"]
+                    == runs0["butterfly"]["w_sha"]
+                    and r["runs"]["butterfly"]["objectives"]
+                    == r["runs"]["butterfly_again"]["objectives"] == ref_objs for r in ranks)
+        s0_same = len({r["runs"][k]["s0_sha"] for r in ranks
+                       for k in ("butterfly", "butterfly_again")}) == 1 and \
+            runs0["butterfly"]["s0_sha"] == sha(ref_s0)
+        meters = all(r["runs"][k]["comm_scalars"] == [per_outer * (t + 1)
+                                                      for t in range(cfg.outer_iters)]
+                     and r["runs"][k]["scalars"] == cfg.outer_iters * per_outer
+                     for r in ranks for k in runs0 if k != "solve")
+        modeled = {r["runs"]["butterfly"]["modeled_s"] for r in ranks}
+        launches_ok = all(r["runs"][k]["launches"] == per_rank for r in ranks
+                          for k in runs0 if k != "solve")
+        index_adds = [r["runs"]["butterfly_again"]["index_adds"] for r in ranks]
+        psum_w = gloo["w"]["psum"]
+        psum_objs = runs0["psum"]["objectives"]
+        psum_obj_rel = max(abs(a - b) / abs(b) for a, b in zip(psum_objs, ref_objs))
+        psum_w_err = float(torch.max(torch.abs(psum_w - fly)))
+        w_scale = float(torch.max(torch.abs(fly)))
+        solve_bitwise = all(r["runs"]["solve"]["w_sha"] == runs0["butterfly"]["w_sha"]
+                            and r["runs"]["solve"]["objectives"] == ref_objs for r in ranks) \
+            and bool(torch.equal(gloo["w"]["solve"], fly))
+        staged_per_run = m * cfg.outer_iters + (cfg.outer_iters + 1) + 2 * cfg.outer_iters + 1
+
+        def timing(k):
+            walls = [r["runs"][k]["wall_s"] for r in ranks]
+            out = {"wall_s": max(walls), "steps_per_s": cfg.outer_iters * m / max(walls)}
+            shares = [r["runs"][k]["collective_share"] for r in ranks]
+            if None not in shares:
+                out.update(collective_share_mean=sum(shares) / len(shares),
+                           collective_share_min=min(shares), collective_share_max=max(shares))
+            return out
+
+        line = {"phase": "sharded_path", "entry": "spawn_ranks -> run_fdsvrg_sharded "
+                "(ShardMapBackend over a gloo DeviceMesh), solve(ExperimentSpec(mesh=))",
+                "ranks": SHARDED_RANKS, "backend": "gloo", "device": "cuda:0 (every rank)",
+                "transport": "each collective's payload copied to the host and back",
+                "d": data.dim, "N": n, "q": Q, "u": u, "inner_steps": m,
+                "outers": cfg.outer_iters,
+                "cut": f"M = {m} inner steps per outer (the main path's {main_cfg.inner_steps}); "
+                       f"held against run_fdsvrg(q={Q}) at the same cut, {parent_s:.3f} s",
+                "write_blocks_s": write_s, "spawn_s": gloo_s,
+                "load_block_s": max(r["load_s"] for r in ranks),
+                "bitwise_run_fdsvrg": bitwise_main, "butterfly_twice_bitwise": twice,
+                "s0_bitwise_every_rank_and_run_fdsvrg": s0_same,
+                "objectives": runs0["butterfly"]["objectives"], "run_fdsvrg_objectives": ref_objs,
+                "meters_closed_form": meters, "scalars_per_outer": per_outer,
+                "modeled_s": sorted(modeled), "launches_per_rank": runs0["butterfly"]["launches"],
+                "expected_launches_per_rank": per_rank, "launches_exact": launches_ok,
+                "index_adds": index_adds, "staged_per_run": runs0["butterfly"]["staged"],
+                "expected_staged_per_run": staged_per_run,
+                "psum": {"objectives": psum_objs, "objective_rel_err": psum_obj_rel,
+                         "w_max_abs_err": psum_w_err, "w_max_abs": w_scale},
+                "tolerance": f"butterfly, solve: bitwise; psum: objective rtol {RUN_RTOL:g}, "
+                             f"max|dw| <= {RUN_W_RTOL:g} * max|w|",
+                "solve_bitwise_butterfly": solve_bitwise,
+                "solve_wall_s": max(r["runs"]["solve"]["wall_s"] for r in ranks),
+                "timing": {k: timing(k) for k in runs0 if k != "solve"},
+                "note": "steps/s from the host clock over the slowest rank; collective_share, "
+                        "in the timed runs (butterfly_again, psum_timed) only, is a rank's "
+                        "ShardMapBackend(timed=True).collective_s over its wall: CUDA events "
+                        "on its stream from the payload being ready to the result being back "
+                        "on the card (host copies, the rounds, waiting on its peers; none of "
+                        "its own compute), the same measure as the NCCL lines'; psum against "
+                        "psum_timed is the events' cost; butterfly_again runs under "
+                        "call_counter"}
+        emit(line)
+        require(bitwise_main and twice and s0_same,
+                "sharded_path: the butterfly run is not bit for bit run_fdsvrg "
+                f"(w {bitwise_main}, twice {twice}, s0 {s0_same})")
+        ref_modeled = ref8.history[-1].modeled_time_s
+        require(meters and len(modeled) == 1
+                and abs(modeled.pop() - ref_modeled) <= 1e-12 * ref_modeled,
+                "sharded_path: meters or modeled time differ from the closed forms")
+        require(launches_ok, "sharded_path: per-rank launches differ from the closed forms")
+        require(index_adds == [0] * SHARDED_RANKS, f"sharded_path: index_add_ calls {index_adds}")
+        require(all(r["runs"][k]["staged"] == staged_per_run for r in ranks
+                    for k in runs0 if k != "solve"), "sharded_path: staged collectives")
+        require(psum_obj_rel <= RUN_RTOL and psum_w_err <= RUN_W_RTOL * w_scale,
+                f"sharded_path: psum run {line['psum']}")
+        require(solve_bitwise, "sharded_path: solve(mesh=) is not the butterfly run")
+
+        launches = {k: sum(r["runs"]["butterfly"]["launches"][k] for r in ranks)
+                    for k in per_rank}
+    if "nccl" in parts:
+        # One NCCL rank on the card: psum and butterfly both bitwise run_fdsvrg(q=1).
+        ops.reset_launch_counts()
+        one = run_fdsvrg(None, balanced(data.dim, 1), loss, reg, cfg, block_data=bd1,
+                         use_kernels=True)
+        nccl, nccl_s = spawn(1, _nccl_rank, "q1", "nccl", "cuda:0")
+        nccl_runs = nccl["ranks"][0]
+        nccl_ok = {mode: bool(torch.equal(nccl["w"][mode], one.w.cpu()))
+                   and nccl_runs[mode]["objectives"] == one.objectives().tolist()
+                   for mode in ("psum", "butterfly")}
+        emit({"phase": "sharded_path", "entry": "spawn_ranks(1, backend='nccl')", "ranks": 1,
+              "backend": "nccl", "q": 1, "spawn_s": nccl_s,
+              "bitwise_run_fdsvrg_q1": nccl_ok,
+              "objectives": nccl_runs["butterfly"]["objectives"],
+              "run_fdsvrg_q1_objectives": one.objectives().tolist(),
+              "launches": {k: v["launches"] for k, v in nccl_runs.items()},
+              "staged": {k: v["staged"] for k, v in nccl_runs.items()},
+              "timing": {k: {"wall_s": v["wall_s"], "steps_per_s": v["steps_per_s"],
+                             "collective_share": v["collective_share"]}
+                         for k, v in nccl_runs.items()},
+              "note": "collective_share in the timed runs only (CUDA events)"})
+        require(all(nccl_ok.values()),
+                f"sharded_path: one NCCL rank vs run_fdsvrg(q=1): {nccl_ok}")
+        require(all(v["launches"] == per_rank and v["staged"] == 0
+                    for v in nccl_runs.values()),
+                "sharded_path: the NCCL rank's launches or staging")
+
+    if "nccl_cards" in parts:
+        # An NCCL rank a card: only where the host has two cards or more.
+        if not q_nccl:
+            emit({"phase": "sharded_path",
+                  "entry": "spawn_ranks(k, backend='nccl', device='cuda')", "ran": False,
+                  "why": f"NCCL runs one rank per card and this host has {cards} card(s); "
+                         "two ranks of one NCCL group on one card are refused"})
+        else:
+            want = run_fdsvrg(None, balanced(data.dim, q_nccl), loss, reg, cfg,
+                              block_data=layouts[f"q{q_nccl}"].to(torch.device("cuda")),
+                              use_kernels=True)
+            multi, multi_s = spawn(q_nccl, _nccl_rank, f"q{q_nccl}", "nccl", "cuda")
+            mruns = multi["ranks"]
+            m_bitwise = bool(torch.equal(multi["w"]["butterfly"], want.w.cpu())) and \
+                mruns[0]["butterfly"]["objectives"] == want.objectives().tolist() and \
+                len({r["butterfly"]["w_sha"] for r in mruns}) == 1
+            m_psum_rel = max(abs(a - b) / abs(b) for a, b in
+                             zip(mruns[0]["psum"]["objectives"], want.objectives().tolist()))
+            walls = {k: max(r[k]["wall_s"] for r in mruns) for k in mruns[0]}
+            emit({"phase": "sharded_path",
+                  "entry": "spawn_ranks(k, backend='nccl', device='cuda')", "ran": True,
+                  "ranks": q_nccl, "cards": cards, "spawn_s": multi_s,
+                  "butterfly_bitwise_run_fdsvrg": m_bitwise,
+                  "psum_objective_rel_err": m_psum_rel,
+                  "launches_rank0": mruns[0]["butterfly"]["launches"],
+                  "staged_rank0": mruns[0]["butterfly"]["staged"],
+                  "timing": {k: {"wall_s": walls[k],
+                                 "steps_per_s": cfg.outer_iters * m / walls[k],
+                                 "collective_share_mean":
+                                     sum(r[k]["collective_share"] for r in mruns) / len(mruns)
+                                     if k.endswith("_timed") else None}
+                             for k in walls},
+                  "note": "collective_share in the timed runs only (CUDA events)"})
+            require(m_bitwise and m_psum_rel <= RUN_RTOL,
+                    f"sharded_path: {q_nccl} NCCL ranks vs run_fdsvrg(q={q_nccl})")
+    emit({"phase": "sharded_path", "entry": "phase", "wall_s": time.perf_counter() - t_phase,
+          "limit_s": SHARDED_LIMIT_S})
+    return launches
 
 
 def run() -> dict:
@@ -2921,7 +3328,16 @@ def run() -> dict:
     solver_launches["front_door"] = {k: front["solve"][k] + front["lazy"][k]
                                      for k in front["solve"]}
 
-    # 20. The kernels line.  Launches: sparse_margin, logistic_grad,
+    # 20. The multi-device driver: one rank per feature block, 8 gloo ranks
+    # on the card, then NCCL (files in a directory removed at the end).
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    try:
+        solver_launches["sharded"] = sharded_path(torch, ops, data, bd8_cpu, bd8, bd1, cfg,
+                                                  loss, reg, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    # 21. The kernels line.  Launches: sparse_margin, logistic_grad,
     # block_scatter and prox_update from the dense main path (sparse_margin's,
     # logistic_grad's and lazy_catchup's times at one step over all 8
     # blocks, lazy_flush's at one epoch's flush, their launches on the path), the

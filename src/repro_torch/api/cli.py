@@ -140,11 +140,11 @@ def main(argv: list[str] | None = None) -> int:
         overrides["q"] = args.workers
     elif info.needs_mesh and lc is not None:
         # The worker count IS the mesh size; drop the config's paper
-        # worker count so the default one-device mesh decides — and say
-        # so: a q=1 run meters zero communication.
+        # worker count so the default mesh (this one process: one rank)
+        # decides — and say so: a q=1 run meters zero communication.
         overrides["q"] = None
-        print(f"note: {args.method} runs at the mesh size (q=1 device "
-              f"here), not the preset's workers={lc.workers}; comm meters "
+        print(f"note: {args.method} runs at the mesh size (q=1 rank in this "
+              f"process), not the preset's workers={lc.workers}; comm meters "
               "reflect that q")
     if args.seed is not None:
         overrides["seed"] = args.seed

@@ -20,17 +20,16 @@ is the single front door that
   :class:`~repro_torch.core.driver.RunResult`.
 
 The ``kernels`` capability is the port's: ``True`` wherever the port has
-a kernel route — the serial and FD drivers, the four baselines,
-``fd_saga`` and ``fd_bcd`` (the reference marks the last six ``False``).
-``fdsvrg_sharded`` keeps the reference's record and raises
-``NotImplementedError`` until the multi-device driver is ported (ROADMAP
-queue 1 item 10).
+a kernel route — the serial and FD drivers, ``fdsvrg_sharded``, the four
+baselines, ``fd_saga`` and ``fd_bcd`` (the reference marks the last seven
+``False``).  ``fdsvrg_sharded`` runs on ``spec.mesh`` (a ``DeviceMesh``;
+every rank calls ``solve``), or on one rank with no process group.
 
 ====================  ====================================================
 ``serial``            Algorithm 2 (Johnson & Zhang), the proof reference
 ``fdsvrg``            Algorithm 1, metered simulation
 ``fdsvrg_sim``        Algorithm 1, explicit q-worker object simulation
-``fdsvrg_sharded``    Algorithm 1 over a device mesh (not ported: item 10)
+``fdsvrg_sharded``    Algorithm 1, one rank per feature block of a mesh
 ``dsvrg``             DSVRG (Lee et al.), instance-sharded ring
 ``synsvrg``           SynSVRG on a parameter server (App. B)
 ``asysvrg``           AsySVRG on a parameter server (App. B)
@@ -47,7 +46,7 @@ import functools
 from typing import Callable
 
 from repro_torch.api.cache import BLOCK_CACHE
-from repro_torch.api.spec import MULTI_DEVICE, PAPER, ExperimentSpec
+from repro_torch.api.spec import PAPER, ExperimentSpec
 from repro_torch.core import baselines
 from repro_torch.core import losses as losses_lib
 from repro_torch.core.driver import CheckpointPolicy, RunResult, resolve_device
@@ -57,9 +56,12 @@ from repro_torch.core.fdsvrg import (
     run_fdsvrg,
     run_serial_svrg,
 )
+from repro_torch.core.fdsvrg_shardmap import FDSVRGShardedConfig, run_fdsvrg_sharded
+from repro_torch.core.partition import balanced
 from repro_torch.data import datasets
+from repro_torch.data.block_csr import BlockCSR
 from repro_torch.data.pipeline import as_source, is_source
-from repro_torch.dist import SimBackend
+from repro_torch.dist import ShardMapBackend, SimBackend
 from repro_torch.optim.update_rules import BCDRule, SAGARule, make_context, run_with_rule
 
 #: Cap on inner steps per outer for the scaled trajectories of the largest
@@ -203,6 +205,11 @@ def _validate(spec: ExperimentSpec, info: MethodInfo) -> None:
             "option='II' would not be honored — run Option I or use a "
             "driver that supports it"
         )
+    if spec.mesh is not None and not info.needs_mesh:
+        raise ValueError(
+            f"method {info.name!r} does not run on a mesh; mesh= is only "
+            "meaningful for the one-rank-per-block method (fdsvrg_sharded)"
+        )
     if spec.tree_mode != "psum" and not info.needs_mesh:
         raise ValueError(
             f"method {info.name!r} does not consume tree_mode="
@@ -289,8 +296,8 @@ def solve(spec: ExperimentSpec) -> RunResult:
         )
         n = data.num_instances
     if info.needs_mesh:
-        # The default mesh is one device, and its size IS the worker count.
-        q = 1
+        # The mesh's size IS the worker count; no mesh is one rank.
+        q = 1 if spec.mesh is None else int(spec.mesh.size())
         if spec.q is not None and spec.q != q:
             raise ValueError(
                 f"q={spec.q} disagrees with the mesh's {q} device(s); for "
@@ -426,14 +433,39 @@ def _solve_fdsvrg_sim(spec, data, p, device) -> RunResult:
 
 @register_method(
     "fdsvrg_sharded", backend="shardmap",
-    supports_kernels=False,
+    # The port's ranks run the kernels through this front door (the
+    # reference marks it False: its Pallas-inside-shard_map path is not
+    # certified through solve).
+    supports_kernels=True,
     supports_option_ii=False,  # the sharded inner scan has no step mask
     needs_mesh=True,
     paper_eta=2.0, paper_batch=PAPER_FD_BATCH, inner_rule="n_over_u",
     summary="Algorithm 1, deployable over the mesh's feature axes",
 )
 def _solve_fdsvrg_sharded(spec, data, p, device) -> RunResult:
-    raise NotImplementedError(f"method 'fdsvrg_sharded' cannot run: {MULTI_DEVICE}")
+    mesh = spec.mesh
+    cfg = FDSVRGShardedConfig(
+        dim=data.dim, num_instances=data.num_instances, nnz_max=data.nnz_max,
+        eta=p.eta, inner_steps=p.inner_steps, batch_size=p.batch_size,
+        loss_name=spec.loss, reg_name=spec.reg.name, lam=spec.reg.lam,
+        lam2=spec.reg.lam2, tree_mode=spec.tree_mode, use_kernels=spec.use_kernels,
+    )
+    if mesh is None:
+        backend = ShardMapBackend(q=1, tree_mode=spec.tree_mode, cluster=spec.cluster)
+        axes, rank = ("model",), 0
+    else:
+        axes = tuple(mesh.mesh_dim_names)
+        backend = ShardMapBackend(mesh=mesh, feature_axes=axes, tree_mode=spec.tree_mode,
+                                  cluster=spec.cluster)
+        rank = backend.device_worker_id()
+    # Each rank builds its own block only, and not through BLOCK_CACHE:
+    # no rank holds the other q - 1 blocks.
+    block = BlockCSR.block_of(data, balanced(data.dim, p.q), rank)
+    return run_fdsvrg_sharded(
+        None, mesh, cfg, feature_axes=axes, outer_iters=spec.outer_iters,
+        seed=spec.seed, backend=backend, init_w=spec.init_w, block=block,
+        device=device,
+    )
 
 
 def _register_baseline(name, runner, *, paper_eta, inner_rule, supports_option_ii=True, summary):

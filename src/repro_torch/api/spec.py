@@ -11,8 +11,9 @@ except where the port differs by design:
   :func:`repro_torch.core.driver.resolve_device` inside ``solve``:
   ``None`` means ``cuda`` and raises without a card;
 * ``init_w`` is a ``torch.Tensor`` or a NumPy array;
-* ``mesh`` must be ``None``: the multi-device driver is not ported yet
-  (ROADMAP queue 1 item 10).
+* ``mesh`` is a ``torch.distributed.device_mesh.DeviceMesh`` (one process
+  per rank, every rank calling ``solve`` with its own spec), ``None``
+  meaning one rank and no process group.
 
 The spec's parts:
 
@@ -44,12 +45,6 @@ from repro_torch.dist import ClusterModel
 
 #: Sentinel for "resolve this per method from the registry's paper defaults".
 PAPER = "paper"
-
-#: Where the multi-device driver stands; cited by every refusal of a mesh.
-MULTI_DEVICE = (
-    "the multi-device driver (fdsvrg_sharded over torch.distributed) is not "
-    "ported yet: ROADMAP queue 1 item 10"
-)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -94,8 +89,8 @@ class ExperimentSpec:
     checkpoint_dir: str | None = None
     checkpoint_every: int = 1
     resume: bool = False
-    # shard_map-only knobs (validated against MethodInfo.needs_mesh):
-    mesh: Any | None = None  # must stay None until item 10 lands
+    # Mesh-only knobs (validated against MethodInfo.needs_mesh):
+    mesh: Any | None = None  # a DeviceMesh; None -> one rank, no process group
     tree_mode: str = "psum"  # "psum" | "butterfly"
     device: torch.device | str | None = None  # None -> cuda (raises without one)
 
@@ -110,7 +105,13 @@ class ExperimentSpec:
                 "path) must be set"
             )
         if self.mesh is not None:
-            raise NotImplementedError(f"mesh= is not supported: {MULTI_DEVICE}")
+            from torch.distributed.device_mesh import DeviceMesh
+
+            if not isinstance(self.mesh, DeviceMesh):
+                raise TypeError(
+                    "mesh must be a torch.distributed.device_mesh.DeviceMesh "
+                    f"(got {type(self.mesh).__name__}); None runs one rank"
+                )
         if self.ingest_chunk_rows < 1:
             raise ValueError(
                 f"ingest_chunk_rows >= 1 required, got "

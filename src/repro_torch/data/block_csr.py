@@ -172,37 +172,80 @@ class BlockCSR:
                 nnz_col=(torch.from_numpy(_count_cols(idx, val, data.dim)),),
                 nnz_max=data.nnz_max,
             )
-        n = idx.shape[0]
-        block_indices: list[torch.Tensor] = []
-        block_values: list[torch.Tensor] = []
-        block_nnz_col: list[torch.Tensor] = []
-        for l in range(partition.num_blocks):
-            lo, hi = partition.block(l)
-            in_blk = (idx >= lo) & (idx < hi) & (val != 0.0)
-            counts = in_blk.sum(axis=1)
-            budget = max(1, int(counts.max()) if n else 1)
-            budget += (-budget) % lane_multiple
-            out_idx = np.zeros((n, budget), dtype=np.int32)
-            out_val = np.zeros((n, budget), dtype=val.dtype)
-            rows, cols = np.nonzero(in_blk)  # row-major: preserves row order
-            # position of each entry within its (compacted) row
-            pos = np.arange(rows.size) - np.searchsorted(rows, rows, side="left")
-            out_idx[rows, pos] = idx[rows, cols] - lo
-            out_val[rows, pos] = val[rows, cols]
-            block_indices.append(torch.from_numpy(out_idx))
-            block_values.append(torch.from_numpy(out_val))
-            block_nnz_col.append(
-                torch.from_numpy(_count_cols(out_idx, out_val, hi - lo))
-            )
+        blocks = [
+            _block_arrays(idx, val, *partition.block(l), lane_multiple)
+            for l in range(partition.num_blocks)
+        ]
         return cls(
             partition=partition,
-            indices=tuple(block_indices),
-            values=tuple(block_values),
+            indices=tuple(b[0] for b in blocks),
+            values=tuple(b[1] for b in blocks),
             labels=labels,
             dim=data.dim,
-            nnz_col=tuple(block_nnz_col),
+            nnz_col=tuple(b[2] for b in blocks),
             nnz_max=data.nnz_max,
         )
+
+    @classmethod
+    def block_of(
+        cls,
+        data: PaddedCSR,
+        partition: FeaturePartition,
+        l: int,
+    ) -> "BlockCSR":
+        """``from_padded(data, partition).one_block(l)``, the same bytes,
+        without building the other blocks: what the rank that owns block
+        ``l`` builds for itself in the multi-device driver."""
+        if partition.dim != data.dim:
+            raise ValueError(
+                f"partition covers dim={partition.dim}, data has dim={data.dim}"
+            )
+        if partition.num_blocks == 1:  # the PaddedCSR rows as they are
+            return cls.from_padded(data, partition).one_block(l)
+        lo, hi = partition.block(l)
+        idx, val, nnz_col = _block_arrays(
+            data.indices.cpu().numpy(), data.values.cpu().numpy(), lo, hi, lane_multiple=1
+        )
+        return cls(
+            partition=FeaturePartition(dim=hi - lo, bounds=(0, hi - lo)),
+            indices=(idx,),
+            values=(val,),
+            labels=data.labels.cpu(),
+            dim=hi - lo,
+            nnz_col=(nnz_col,),
+            nnz_max=data.nnz_max,
+        )
+
+    def one_block(self, l: int) -> "BlockCSR":
+        """Block ``l`` alone, as a one-block layout over its own features
+        (local ids, its own width ``nnz_l``, every label): what the rank
+        that owns block ``l`` holds in the multi-device driver.  The same
+        tensors, no copy; the cost model's global row width is kept."""
+        lo, hi = self.partition.block(l)
+        return BlockCSR(
+            partition=FeaturePartition(dim=hi - lo, bounds=(0, hi - lo)),
+            indices=(self.indices[l],),
+            values=(self.values[l],),
+            labels=self.labels,
+            dim=hi - lo,
+            nnz_col=None if self.nnz_col is None else (self.nnz_col[l],),
+            nnz_max=self.global_nnz_max(),
+        )
+
+    def stacked(self, budget: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+        """Uniform-budget [q, N, B] index/value stacks: every block padded
+        (local id 0, value 0.0) up to a common nnz budget (default: the
+        largest per-block budget), for callers that shard one tensor's
+        leading axis over the ranks."""
+        common = max(self.nnz_budgets)
+        if budget is not None:
+            if budget < common:
+                raise ValueError(f"budget {budget} < required {common}")
+            common = budget
+        pad = torch.nn.functional.pad
+        idx = torch.stack([pad(i, (0, common - i.shape[1])) for i in self.indices])
+        val = torch.stack([pad(v, (0, common - v.shape[1])) for v in self.values])
+        return idx, val
 
     def nnz_total(self) -> int:
         return int(sum(int(torch.count_nonzero(v)) for v in self.values))
@@ -213,6 +256,30 @@ def _same_device(have: torch.device, want: torch.device) -> bool:
     if want.type == "cuda" and want.index is None:
         want = torch.device("cuda", torch.cuda.current_device())
     return have == want
+
+
+def _block_arrays(
+    idx: np.ndarray, val: np.ndarray, lo: int, hi: int, lane_multiple: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Rows of features [lo, hi) in local ids, compacted to the block's own
+    budget (rounded up to ``lane_multiple``), and its per-feature counts."""
+    n = idx.shape[0]
+    in_blk = (idx >= lo) & (idx < hi) & (val != 0.0)
+    counts = in_blk.sum(axis=1)
+    budget = max(1, int(counts.max()) if n else 1)
+    budget += (-budget) % lane_multiple
+    out_idx = np.zeros((n, budget), dtype=np.int32)
+    out_val = np.zeros((n, budget), dtype=val.dtype)
+    rows, cols = np.nonzero(in_blk)  # row-major: preserves row order
+    # position of each entry within its (compacted) row
+    pos = np.arange(rows.size) - np.searchsorted(rows, rows, side="left")
+    out_idx[rows, pos] = idx[rows, cols] - lo
+    out_val[rows, pos] = val[rows, cols]
+    return (
+        torch.from_numpy(out_idx),
+        torch.from_numpy(out_val),
+        torch.from_numpy(_count_cols(out_idx, out_val, hi - lo)),
+    )
 
 
 def _count_cols(indices: np.ndarray, values: np.ndarray, dim: int) -> np.ndarray:

@@ -1,6 +1,8 @@
 """The distributed substrate: meters, cost closed forms, tree schedules,
-the single-process ``Collectives`` backends and seeded fault injection
-(port of ``repro.dist``)."""
+the single-process ``Collectives`` backends, the deployable
+``ShardMapBackend`` over ``torch.distributed`` (one process per rank,
+started by :func:`repro_torch.dist.launch.spawn_ranks`) and seeded fault
+injection (port of ``repro.dist``)."""
 
 from repro_torch.dist.collectives import Collectives, LocalBackend, SimBackend
 from repro_torch.dist.costs import COSTS, CostModel, PhaseCost
@@ -14,8 +16,11 @@ from repro_torch.dist.faults import (
 )
 from repro_torch.dist.meter import ClusterModel, CommEvent, CommMeter, tree_rounds
 from repro_torch.dist.metering import CommReport
+from repro_torch.dist.shardmap import ShardMapBackend
 from repro_torch.dist.tree import (
     broadcast_schedule,
+    collective_permute_tree,
+    psum_tree,
     simulate_tree_sum,
     tree_order_sum,
     tree_schedule,
@@ -36,8 +41,11 @@ __all__ = [
     "PhaseCost",
     "RetriesExhaustedError",
     "RetryPolicy",
+    "ShardMapBackend",
     "SimBackend",
     "broadcast_schedule",
+    "collective_permute_tree",
+    "psum_tree",
     "simulate_tree_sum",
     "tree_order_sum",
     "tree_rounds",

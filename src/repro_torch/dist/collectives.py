@@ -9,6 +9,8 @@ collectives (``all_reduce``) and metering-only primitives (``meter_tree``,
 * :class:`LocalBackend` — sums partials directly, in canonical tree order.
 * :class:`SimBackend` — runs the explicit Figure-5 message schedule via
   :func:`~repro_torch.dist.tree.simulate_tree_sum`.
+* :class:`repro_torch.dist.shardmap.ShardMapBackend` — the deployable
+  path: one process per worker over a ``torch.distributed`` group.
 """
 
 from __future__ import annotations
@@ -119,6 +121,16 @@ class MeteredBackend:
                 f"parts for q={self.q}"
             )
 
+    def _host_all_reduce(self, parts: Sequence, payload: int | None):
+        """Shared host-side reduction: validate one partial per worker,
+        meter the closed form, sum in canonical tree order."""
+        self._check_parts(parts)
+        parts = [torch.as_tensor(p) for p in parts]
+        if payload is None:
+            payload = int(parts[0].numel())
+        self.meter_tree(payload)
+        return tree_order_sum(parts)
+
     def report(self, method: str = "") -> CommReport:
         return CommReport.from_meter(
             method=method,
@@ -134,12 +146,7 @@ class LocalBackend(MeteredBackend):
     canonical tree order, with the standard accounting."""
 
     def all_reduce(self, parts: Sequence, payload: int | None = None):
-        self._check_parts(parts)
-        parts = [torch.as_tensor(p) for p in parts]
-        if payload is None:
-            payload = int(parts[0].numel())
-        self.meter_tree(payload)
-        return tree_order_sum(parts)
+        return self._host_all_reduce(parts, payload)
 
 
 class SimBackend(MeteredBackend):

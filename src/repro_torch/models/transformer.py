@@ -21,7 +21,7 @@ Three execution modes share the layer code:
 
 MoE, SSM, vision and audio branches raise ``NotImplementedError`` (ROADMAP
 queue 1 item 11); ``make_ctx``, ``param_specs`` and ``cache_specs`` come
-with the multi-device slice (queue 10).
+with its step 9.
 """
 
 from __future__ import annotations

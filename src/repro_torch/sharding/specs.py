@@ -3,8 +3,9 @@
 Port of the part of ``repro.sharding.specs`` that the model code calls:
 :meth:`ShardingCtx.constrain` (here the identity) and
 :func:`unsharded_ctx`.  The mesh rules, ``param_specs`` and
-``cache_specs`` come with the multi-device slice (ROADMAP queue 1 item 10);
-the model code already names its logical axes, so they slot in there.
+``cache_specs`` come with the rest of the LM scaffolding (ROADMAP queue 1
+item 11 step 9); the model code already names its logical axes, so they
+slot in there.
 """
 
 from __future__ import annotations

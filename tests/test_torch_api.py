@@ -55,9 +55,12 @@ MARGIN_RTOL = 1e-6
 CPU = "cpu"
 DATA = dict(dim=512, num_instances=48, nnz_per_instance=8, seed=2)
 RUN = dict(q=2, eta=0.3, batch_size=2, inner_steps=8, outer_iters=2)
+# Every method but the sharded one, whose worker count is the mesh's
+# (tests/test_torch_shardmap.py holds it against the reference).
 PORTED = sorted(m for m in r_api.METHODS if m != "fdsvrg_sharded")
 # The methods whose kernel route the port has and the reference lacks.
-KERNELS_ADDED = {"dsvrg", "synsvrg", "asysvrg", "pslite_sgd", "fd_saga", "fd_bcd"}
+KERNELS_ADDED = {"dsvrg", "synsvrg", "asysvrg", "pslite_sgd", "fd_saga", "fd_bcd",
+                 "fdsvrg_sharded"}
 
 
 @pytest.fixture(scope="module")
@@ -148,8 +151,6 @@ def test_resolved_run_matches_reference(method):
 # (label, spec fields besides data, exception, match); both packages raise
 # it for the same spec (the port's use_kernels set to the reference's).
 VALIDATION = [
-    ("kernels_on_sharded", dict(method="fdsvrg_sharded", use_kernels=True), ValueError,
-     "use_kernels"),
     ("option_ii_asysvrg", dict(method="asysvrg", option="II"), ValueError, "Option I/II"),
     ("option_ii_pslite", dict(method="pslite_sgd", option="II"), ValueError, "Option I/II"),
     ("option_ii_sharded", dict(method="fdsvrg_sharded", option="II"), ValueError,
@@ -186,15 +187,20 @@ def test_validation_matches_reference(pair, fields, exc, match):
 
 
 def test_port_refusals(pair):
-    """What the port refuses where the reference runs: a mesh and the
-    sharded driver (ROADMAP queue 1 item 10), float64 on the kernel
-    route; and no device is chosen behind the caller's back."""
+    """What the port refuses where the reference runs: a mesh that is not
+    a ``DeviceMesh``, float64 on the kernel route; and no device is chosen
+    behind the caller's back.  The sharded driver runs without a mesh (one
+    rank), bitwise the one-block ``fdsvrg`` run."""
     t_data = pair[1]
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         t_api.ExperimentSpec(method="fdsvrg_sharded", data=t_data, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        t_api.solve(t_api.ExperimentSpec(method="fdsvrg_sharded", data=t_data,
-                                         use_kernels=False, device=CPU))
+    one = dict(RUN, q=None)
+    sharded = t_api.solve(t_api.ExperimentSpec(method="fdsvrg_sharded", data=t_data,
+                                               use_kernels=False, device=CPU, **one))
+    direct = t_api.solve(t_api.ExperimentSpec(method="fdsvrg", data=t_data,
+                                              use_kernels=False, device=CPU, **dict(one, q=1)))
+    assert torch.equal(sharded.w, direct.w)
+    assert sharded.objectives().tolist() == direct.objectives().tolist()
     wide = dataclasses.replace(t_data, values=t_data.values.double(),
                                labels=t_data.labels.double())
     with pytest.raises(ValueError, match="float32"):
@@ -209,16 +215,35 @@ def test_port_refusals(pair):
 
 
 def test_capability_matrix_pinned():
-    """The port's matrix is the reference's but for ``kernels`` on the six
-    methods the port has a kernel route for, and two summaries that name
-    JAX mechanisms."""
+    """The port's matrix is the reference's but for ``kernels`` on the
+    seven methods the port has a kernel route for, and two summaries that
+    name JAX mechanisms."""
     ref = {r["method"]: r for r in r_api.capability_matrix()}
     port = {r["method"]: r for r in t_api.capability_matrix()}
     assert list(port) == list(ref)
     diffs = {(m, k) for m in ref for k in ref[m] if port[m][k] != ref[m][k]}
     assert diffs == {(m, "kernels") for m in KERNELS_ADDED} | {
         ("fdsvrg", "summary"), ("fdsvrg_sharded", "summary")}
-    assert {m for m, r in port.items() if r["kernels"]} == set(PORTED)
+    assert {m for m, r in port.items() if r["kernels"]} == set(r_api.METHODS)
+
+
+def test_sharded_kernel_route_runs_where_the_reference_refuses(pair):
+    """``fdsvrg_sharded`` with ``use_kernels=True``: the reference refuses
+    it (its kernel path is not certified through solve); the port runs it,
+    bitwise the one-block ``fdsvrg`` kernel-route run (on the CPU the
+    kernels' plain versions)."""
+    r_data, t_data = pair
+    one = dict(RUN, q=None)
+    with pytest.raises(ValueError, match="use_kernels"):
+        r_api.solve(r_api.ExperimentSpec(method="fdsvrg_sharded", data=r_data,
+                                         use_kernels=True, **one))
+    sharded = t_api.solve(t_api.ExperimentSpec(method="fdsvrg_sharded", data=t_data,
+                                               device=CPU, tree_mode="butterfly", **one))
+    direct = t_api.solve(t_api.ExperimentSpec(method="fdsvrg", data=t_data, device=CPU,
+                                              **dict(one, q=1)))
+    assert torch.equal(sharded.w, direct.w)
+    assert sharded.objectives().tolist() == direct.objectives().tolist()
+    assert sharded.meter.total_scalars == direct.meter.total_scalars == 0
 
 
 # ---------------------------------------------------------------------------
@@ -571,13 +596,17 @@ def test_cli_list_and_refusals(capsys):
         assert name in out
     assert "multi_output" in out and "kernels" in out
     assert cli.main([]) == 2
+    capsys.readouterr()
+    # The sharded method runs in one process as one rank, and says so.
     assert cli.main(["--config", "fdsvrg-news20", "--method", "fdsvrg_sharded",
-                     "--use-kernels", "--quick", "--device", "cpu"]) == 2
-    assert "use_kernels" in capsys.readouterr().err
+                     "--use-kernels", "--outer-iters", "1", "--inner-steps", "20",
+                     "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "q=1 rank in this process" in out and "final objective" in out
     assert cli.main(["--config", "fdsvrg-news20", "--method", "sgd", "--device", "cpu"]) == 2
     assert cli.main(["--config", "fdsvrg-news20", "--method", "fdsvrg_sharded",
-                     "--no-use-kernels", "--quick", "--device", "cpu"]) == 2
-    assert "item 10" in capsys.readouterr().err
+                     "--workers", "8", "--quick", "--device", "cpu"]) == 2
+    assert "mesh" in capsys.readouterr().err
     if not torch.cuda.is_available():
         assert cli.main(["--config", "fdsvrg-news20", "--quick"]) == 2
         assert "CUDA" in capsys.readouterr().err

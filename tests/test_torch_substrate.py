@@ -38,6 +38,7 @@ from repro.dist import collectives as r_coll
 from repro.dist import costs as r_costs
 from repro.dist import meter as r_meter
 from repro.dist import metering as r_metering
+from repro.dist import shardmap as r_shardmap
 from repro.dist import tree as r_tree
 
 from repro_torch import convert
@@ -56,6 +57,7 @@ from repro_torch.dist import collectives as t_coll
 from repro_torch.dist import costs as t_costs
 from repro_torch.dist import meter as t_meter
 from repro_torch.dist import metering as t_metering
+from repro_torch.dist import shardmap as t_shardmap
 from repro_torch.dist import tree as t_tree
 from repro_torch.dist.faults import FaultError
 
@@ -323,7 +325,11 @@ def test_cost_model_closed_forms_match_reference():
 
 
 def _drive_backend(mod, cls_name, parts):
-    backend = getattr(mod, cls_name)(4)
+    if cls_name == "ShardMapBackend":  # its interpret mode: no devices, no group
+        backend = (r_shardmap if mod is r_coll else t_shardmap).ShardMapBackend(
+            q=4, interpret=True)
+    else:
+        backend = getattr(mod, cls_name)(4)
     out = backend.all_reduce(parts)
     backend.meter_tree(payload=10, steps=3)
     backend.p2p(5, "abort", rounds=2)
@@ -333,7 +339,7 @@ def _drive_backend(mod, cls_name, parts):
     return out, backend
 
 
-@pytest.mark.parametrize("cls_name", ["LocalBackend", "SimBackend"])
+@pytest.mark.parametrize("cls_name", ["LocalBackend", "SimBackend", "ShardMapBackend"])
 def test_backends_meter_like_reference(cls_name):
     parts = np.random.default_rng(6).normal(size=(4, 5)).astype(np.float32)
     r_out, r_b = _drive_backend(r_coll, cls_name, [jnp.asarray(p) for p in parts])
