@@ -64,7 +64,19 @@ shapes (up to 524,288 positions) and the reference test's; then
 (``use_kernels=False``, fed the kernel run's tokens) within a stated
 tolerance, and a profile of one long decode step; then the batch-4 run
 again in float32 at 4 layers (``lm_serve_f32``), whose twin separates the
-kernel's error from bfloat16's.
+kernel's error from bfloat16's.  Then the other nine LM presets: the
+kernel with gemma2's attention softcap and sliding window held against
+its plain version (gemma2's and paligemma's decode shapes, the
+tensor-core pass with a softcap, each preset's own shape) and timed at
+32,768 positions beside the call without options; each preset served
+at full width by ``repro_torch.launch.serve`` (``lm_family``: B = 4,
+prompt 512, 16 tokens; jamba-v0.1-52b cut to 8 layers), with exact
+launch counts, the MoE layers' overflow at prefill and a plain twin
+(mamba2-2.7b has no attention layer, so none); gemma2-9b over an
+8,192-token prompt where the 4,096 window binds (``lm_gemma2_long``),
+again in float32 at 4 layers (``lm_gemma2_f32``); and the ``q_chunk``
+prefill lever against the single scan at one gemma2 local and one
+global layer (``blockwise_prefill``).
 Then the data path, serving, faults and checkpoints at full-width news20:
 ``ingest_path`` writes the rows as LibSVM text, streams them into the q = 8
 layout (``LibSVMSource`` -> ``stream_block_csr`` at 4,096- and 997-row
@@ -183,6 +195,31 @@ DENSE_STEP_W_RTOL = 1e-4
 # the attention output's bfloat16 rounding travels through 40 layers).
 FLASH_RTOL = 2e-5
 LM_LOGIT_RTOL = 0.05
+# The LM presets served beside qwen3-14b (lm_family), each at full width;
+# jamba-v0.1-52b's 51.5e9 parameters (103 GB in bf16) do not fit one 80 GB
+# card, so it is cut to one repeat of its 8-layer pattern (one attention,
+# four MoE and seven SSD layers).
+LM_FAMILY = ("gemma2-9b", "minitron-4b", "smollm-360m", "olmoe-1b-7b", "granite-moe-1b-a400m",
+             "mamba2-2.7b", "jamba-v0.1-52b", "paligemma-3b", "musicgen-large")
+LM_FAMILY_LAYERS = {"jamba-v0.1-52b": 8}
+# One decode step of one MoE and one SSD preset is profiled (idle share,
+# the MoE and SSD blocks' shares), as lm_decode_long's is for qwen3-14b.
+LM_FAMILY_PROFILED = ("olmoe-1b-7b", "mamba2-2.7b")
+# A MoE twin takes the kernel run's experts; where its own router chooses
+# otherwise, the kernel run's experts may lie at most this many bf16 ulps
+# (2^-8 * the row's largest router logit) below its own k-th logit: above
+# the largest such gap read on an H100 (granite-moe 3.58), below the
+# median gap between the k-th and (k+1)-th logit of every decision
+# (olmoe 5.15, granite 7.60, jamba 29.3), which a fault that moves the
+# hidden state by more than rounding would reach.
+ROUTER_TIE_ULPS = 4.0
+GEMMA_LONG_PROMPT = 8192  # twice gemma2's 4,096 window
+# blockwise_prefill: attention_train with q_chunk against the single scan at
+# one gemma2 layer in bf16, bit for bit: a key chunk the blockwise path
+# skips leaves the single scan's running sums exactly as they were (its
+# masked terms are exp(-1e30 - m) = 0, or are scaled by exactly 0 once a
+# real score arrives), and the chunks it visits are summed in the same order.
+BLOCKWISE_Q_CHUNK = 1024
 # Float operations per replayed or touched feature, for bound_ms: the
 # dense step 5 (+4 with a prox, +1 with elastic net); the proba step 6
 # (+6 with a prox, +4 with elastic net).
@@ -227,13 +264,14 @@ def host_ms(torch, fn, iters: int) -> float:
 
 def device_kernels(torch, prof) -> tuple[dict[str, float], dict[str, int]]:
     """Device time (us) and launches of each kernel name in a profile,
-    memory copies left out (the L2 flush is a device-to-device copy)."""
+    memory copies (the L2 flush is a device-to-device copy) and the device
+    side of the script's own "smoke::" ranges left out."""
     from torch.autograd import DeviceType
 
     us: dict[str, float] = {}
     calls: dict[str, int] = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA and not e.name.startswith("Memcpy"):
+        if e.device_type == DeviceType.CUDA and not e.name.startswith(("Memcpy", "smoke::")):
             us[e.name] = us.get(e.name, 0.0) + e.device_time_total
             calls[e.name] = calls.get(e.name, 0) + 1
     return us, calls
@@ -1714,6 +1752,55 @@ def sharded_path(torch, ops, data, bd8_cpu, bd8, bd1, main_cfg, loss, reg, workd
     return launches
 
 
+def blockwise_prefill(torch, cfg, dev) -> None:
+    """``attention_train`` with the ``q_chunk`` lever (each query block
+    visits only the key chunks its mask reaches) against the single scan,
+    at one gemma2 local and one global layer: B = 1, S = 8,192, random bf16
+    weights from the seed, both timed (CUDA events, back to back)."""
+    import dataclasses
+
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models.transformer import attn_config
+    from repro_torch.sharding.specs import unsharded_ctx
+
+    ctx = unsharded_ctx()
+    gen = torch.Generator(dev)
+    gen.manual_seed(SEED)
+    s = GEMMA_LONG_PROMPT
+    x = torch.randn((1, s, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+    pos = torch.arange(s, device=dev)[None]
+    for tmpl in cfg.pattern:
+        acfg = attn_config(cfg, tmpl)
+        blk = dataclasses.replace(acfg, q_chunk=BLOCKWISE_Q_CHUNK)
+        params = attn_mod.init_attention(gen, cfg.d_model, acfg, torch.bfloat16)
+        want = attn_mod.attention_train(params, x, pos, acfg, ctx)[0]
+        got = attn_mod.attention_train(params, x, pos, blk, ctx)[0]
+        ymax = float(torch.max(torch.abs(want.float())))
+        err = float(torch.max(torch.abs(got.float() - want.float())))
+        same = torch.equal(got, want)
+        kc = min(acfg.kv_chunk, BLOCKWISE_Q_CHUNK)
+        visited = sum(
+            ((i + 1) * BLOCKWISE_Q_CHUNK - (0 if acfg.window is None else
+                                            max(0, (i * BLOCKWISE_Q_CHUNK - acfg.window)
+                                                // kc * kc))) // kc
+            for i in range(s // BLOCKWISE_Q_CHUNK))
+        scan_ms = host_ms(torch, lambda: attn_mod.attention_train(params, x, pos, acfg, ctx), 3)
+        blk_ms = host_ms(torch, lambda: attn_mod.attention_train(params, x, pos, blk, ctx), 3)
+        row = {"phase": "blockwise_prefill", "layer": tmpl.mixer, "window": acfg.window,
+               "softcap": acfg.attn_softcap, "B": 1, "S": s, "q_chunk": BLOCKWISE_Q_CHUNK,
+               "kv_chunk": kc, "score_tiles_visited": visited,  # q_chunk x kv_chunk tiles
+               "score_tiles_single_scan": (s // BLOCKWISE_Q_CHUNK) * (s // kc),
+               "max_abs_err": err, "max_abs_y": ymax, "bitwise": same,
+               "tolerance": "bit for bit",
+               "single_scan_ms": scan_ms, "blockwise_ms": blk_ms,
+               "speedup": scan_ms / blk_ms}
+        emit(row)
+        require(same, f"blockwise_prefill: {row}")
+        del params, want, got
+    del x
+    torch.cuda.empty_cache()
+
+
 def run() -> dict:
     import torch
 
@@ -3140,51 +3227,90 @@ def run() -> dict:
               torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
           "memory_allocated_gb": torch.cuda.memory_allocated() / 1e9})
     decode_rows = {}
+    flex_cache = {}
 
-    def decode_check(label, q, k, v, length, iters):
-        """q [B, Hkv, G, Dh], k/v [B, S, Hkv, Dh] on the card."""
+    def flex_capped(cap):
+        """torch.compile'd flex_attention and a softcap score_mod (the
+        library yardstick of a capped decode; the port never calls it)."""
+        if cap not in flex_cache:
+            from torch.nn.attention.flex_attention import flex_attention
+
+            def score_mod(score, b, h, q_idx, kv_idx):
+                return cap * torch.tanh(score / cap)
+
+            flex_cache[cap] = (torch.compile(flex_attention, dynamic=False), score_mod)
+        return flex_cache[cap]
+
+    def decode_check(label, q, k, v, length, iters, softcap=None, window=None, timed=True):
+        """q [B, Hkv, G, Dh], k/v [B, S, Hkv, Dh] on the card; with
+        ``softcap`` / ``window``, gemma2's options.  Untimed rows check the
+        kernel against its plain version only."""
         b_, hkv_, g_, dh_ = q.shape
         scale = dh_ ** -0.5
-        got = decode_mod.flash_decode(q, k, v, length, scale)
-        require(torch.equal(got, decode_mod.flash_decode(q, k, v, length, scale)),
-                f"flash_decode {label}: not deterministic")
-        want = decode_mod.flash_decode_plain(q, k, v, length, scale)
-        vmax = float(torch.max(torch.abs(v[:, :length].float())))
+        opts = {"softcap": softcap, "window": window}
+
+        def kernel():
+            return decode_mod.flash_decode(q, k, v, length, scale, **opts)
+
+        def plain():
+            return decode_mod.flash_decode_plain(q, k, v, length, scale, **opts)
+
+        got = kernel()
+        require(torch.equal(got, kernel()), f"flash_decode {label}: not deterministic")
+        want = plain()
+        start = decode_mod.window_start(length, window)
+        rows = length - start  # the rows the window leaves: all the kernel reads
+        vmax = float(torch.max(torch.abs(v[:, start:length].float())))
         err = float(torch.max(torch.abs(got - want)))
         tol = FLASH_RTOL * vmax
-        # The yardstick: one SDPA call over the valid prefix (k, v moved to
-        # [B, Hkv, L, Dh] outside the timed call).
-        qs = q.reshape(b_, hkv_ * g_, 1, dh_)
-        ks = k[:, :length].transpose(1, 2).contiguous()
-        vs = v[:, :length].transpose(1, 2).contiguous()
-
-        def library():
-            return torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, scale=scale,
-                                                                    enable_gqa=True)
-
-        lib_err = float(torch.max(torch.abs(library().float().reshape(got.shape) - want)))
         elt = q.element_size()
-        b_ms, b_by = bound_ms(2 * b_ * length * hkv_ * dh_ * elt + b_ * hkv_ * g_ * dh_ * (elt + 4),
-                              4.0 * b_ * hkv_ * g_ * length * dh_)
+        b_ms, b_by = bound_ms(2 * b_ * rows * hkv_ * dh_ * elt + b_ * hkv_ * g_ * dh_ * (elt + 4),
+                              4.0 * b_ * hkv_ * g_ * rows * dh_)
         row = {"phase": "kernel_check", "kernel": "flash_decode", "shape": label,
                "B": b_, "Hkv": hkv_, "group": g_, "Dh": dh_, "S": k.shape[1], "length": length,
+               "softcap": softcap, "window": window, "rows_read": rows,
                "dtype": str(q.dtype).split(".")[1],
-               "splits": list(decode_mod.num_splits(b_ * hkv_, length, sms)),
+               "splits": list(decode_mod.num_splits(b_ * hkv_, rows, sms)),
                "max_abs_err": err, "max_err_over_tol": err / tol,
-               "tolerance": f"|d| <= {FLASH_RTOL:g} * max|v[:length]|",
-               "library_max_abs_err": lib_err, "l2": "cold",
-               "kernel_ms": device_ms(torch, lambda: decode_mod.flash_decode(q, k, v, length, scale),
-                                      iters, flush),
-               "plain_ms": device_ms(torch, lambda: decode_mod.flash_decode_plain(
-                   q, k, v, length, scale), max(3, iters // 10), flush),
-               "library_ms": device_ms(torch, library, iters, flush),
-               "host_ms": host_ms(torch, lambda: decode_mod.flash_decode(q, k, v, length, scale),
-                                  iters),
-               "bound_ms": b_ms, "bound_by": b_by}
+               "tolerance": f"|d| <= {FLASH_RTOL:g} * max|v[start:length]|",
+               "bound_ms": b_ms, "bound_by": b_by, "l2": "cold"}
+        if timed:
+            row.update({
+                "kernel_ms": device_ms(torch, kernel, iters, flush),
+                "plain_ms": device_ms(torch, plain, max(3, iters // 10), flush),
+                "host_ms": host_ms(torch, kernel, iters), "library_ms": None})
+            # The yardstick: one library call over the window's rows (k, v
+            # moved to [B, Hkv, L, Dh] outside the timed call): SDPA, or
+            # with a softcap flex_attention with the cap as its score_mod
+            # (compiled once a shape and warmed before it is timed).
+            qs = q.reshape(b_, hkv_ * g_, 1, dh_)
+            ks = k[:, start:length].transpose(1, 2).contiguous()
+            vs = v[:, start:length].transpose(1, 2).contiguous()
+            if softcap is None:
+                row["library"] = "scaled_dot_product_attention(enable_gqa=True)"
+
+                def library():
+                    return torch.nn.functional.scaled_dot_product_attention(
+                        qs, ks, vs, scale=scale, enable_gqa=True)
+            else:
+                row["library"] = "flex_attention(score_mod=cap * tanh(s / cap), " \
+                                 "enable_gqa=True), torch.compile'd"
+                flex, score_mod = flex_capped(softcap)
+
+                def library():
+                    return flex(qs, ks, vs, score_mod=score_mod, scale=scale, enable_gqa=True)
+
+                t0 = time.perf_counter()
+                library()
+                torch.cuda.synchronize()
+                row["library_compile_s"] = time.perf_counter() - t0
+            row["library_max_abs_err"] = float(torch.max(torch.abs(
+                library().float().reshape(got.shape) - want)))
+            row["library_ms"] = device_ms(torch, library, iters, flush)
+            del ks, vs
         emit(row)
         require(err <= tol, f"flash_decode {label}: {row}")
         decode_rows[label] = row
-        del ks, vs
 
     gen_d = torch.Generator(dev)
     gen_d.manual_seed(SEED)
@@ -3218,47 +3344,210 @@ def run() -> dict:
                          k[None], v[None], length, 100)
     torch.cuda.empty_cache()
 
-    def lm_phase(phase, argv, profile_step):
+    # The softcap and the sliding window (gemma2: Hkv 8, G 2, Dh 256, bf16,
+    # softcap 50, window 4,096) at lengths inside, at and past the window;
+    # timed at 32,768 beside the same call without options, where the
+    # window reads 4,096 of the 32,768 rows.
+    t_presets = time.perf_counter()
+    gemma = get_config("gemma2-9b")
+    g_hkv, g_group, g_dh = gemma.num_kv_heads, gemma.num_heads // gemma.num_kv_heads, \
+        gemma.head_dim
+    g_cap, g_win = gemma.attn_softcap, gemma.sliding_window
+    for b_ in (1, 4):
+        long_ = INPUT_SHAPES["decode_32k"].seq_len
+        q = randn((b_, g_hkv, g_group, g_dh), torch.bfloat16) * 16  # scores of order the cap
+        k, v = (randn((b_, long_ + 16, g_hkv, g_dh), torch.bfloat16) for _ in range(2))
+        decode_check(f"gemma2-9b B = {b_}, length = {long_}", q, k, v, long_, 100)
+        for length in (1, g_win - 1, g_win, g_win + 1, long_):
+            for cap_, win_ in ((g_cap, None), (None, g_win), (g_cap, g_win)):
+                decode_check(f"gemma2-9b B = {b_}, length = {length}, softcap = {cap_}, "
+                             f"window = {win_}", q, k, v, length, 100, softcap=cap_,
+                             window=win_, timed=length == long_)
+        del q, k, v
+    # paligemma's grouping (Hkv 1, G 8, Dh 256: group * Dh at the limit) and
+    # the tensor-core pass (Dh 128, bf16) with the softcap; then each new
+    # preset's own decode shape at B = 4 over 528 positions (prompt 512 + 16).
+    for label, (b_, hkv_, g_, dh_), lengths in (
+            ("paligemma-3b", (4, 1, 8, 256), (528, 4097)),
+            ("qwen3-14b", (4, 8, 5, 128), (528, 4097)),
+            ("qwen3-14b", (1, 8, 5, 128), (INPUT_SHAPES["decode_32k"].seq_len,))):
+        q = randn((b_, hkv_, g_, dh_), torch.bfloat16) * 4
+        k, v = (randn((b_, max(lengths) + 16, hkv_, dh_), torch.bfloat16) for _ in range(2))
+        for length in lengths:
+            decode_check(f"{label} B = {b_}, length = {length}, softcap = 50.0", q, k, v,
+                         length, 100, softcap=50.0, timed=False)
+        del q, k, v
+    for arch in LM_FAMILY:
+        c_ = get_config(arch)
+        if not c_.num_heads:
+            continue  # mamba2: attention-free
+        shape = (4, c_.num_kv_heads, c_.num_heads // c_.num_kv_heads, c_.resolved_head_dim)
+        q = randn(shape, torch.bfloat16)
+        k, v = (randn((4, 528, shape[1], shape[3]), torch.bfloat16) for _ in range(2))
+        decode_check(f"{arch} B = 4, length = 528", q, k, v, 528, 100, timed=False)
+        del q, k, v
+    torch.cuda.empty_cache()
+    presets_decode_s = time.perf_counter() - t_presets
+
+    def lm_phase(phase, argv, profile_step, extra=None):
         """Drive repro_torch.launch.serve at full width with exact launch
-        counts, then a plain twin fed the kernel run's tokens."""
+        counts (one flash_decode per attention layer and step), then a plain
+        twin fed the kernel run's tokens; the model is freed at the end."""
+        from repro_torch.models import moe as moe_mod
+        from repro_torch.models import transformer as tf_mod
+
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        r = serve_mod.run(argv)
-        wall = time.perf_counter() - t0
+        # The MoE layers' overflow at prefill, read off their aux outputs,
+        # each decode step's routing (the experts each MoE layer gave each
+        # request, in call order), read where moe_ffn routes, and the
+        # prefill's prompt, which a twin with SSD layers prefills again.
+        moe_ffn, route, prefill = moe_mod.moe_ffn, moe_mod._route, tf_mod.prefill
+        overflow, routes, decoding = [], {"kernel": [], "twin": []}, [False]
+        prefill_args = []
+
+        def recording_prefill(*args):
+            prefill_args.append(args)
+            return prefill(*args)
+
+        def recording_moe_ffn(params, x, cfg_, ctx_, num_groups=None):
+            decoding[0] = x.shape[1] == 1
+            y, aux = moe_ffn(params, x, cfg_, ctx_, num_groups)
+            if not decoding[0]:
+                overflow.append(aux["overflow_frac"])
+            return y, aux
+
+        def recording_route(xt, router, k):
+            out = route(xt, router, k)
+            if decoding[0]:
+                routes["kernel"].append(out[3])
+            return out
+
+        moe_mod.moe_ffn, moe_mod._route = recording_moe_ffn, recording_route
+        tf_mod.prefill = recording_prefill
+        try:
+            t0 = time.perf_counter()
+            r = serve_mod.run(argv)
+            wall = time.perf_counter() - t0
+        except BaseException:
+            moe_mod.moe_ffn, moe_mod._route = moe_ffn, route
+            raise
+        finally:
+            tf_mod.prefill = prefill
         counts = ops.launch_counts()
         cfg_lm = r.cfg
-        b_, gen = r.tokens.shape
-        want_counts = expected_launches(ops, flash_decode=gen * cfg_lm.num_layers)
+        b_, gen = r.tokens.shape[:2]
+        attn_layers = sum(t.mixer != "ssm" for t in cfg_lm.pattern) * cfg_lm.num_repeats
+        want_counts = expected_launches(ops, flash_decode=gen * attn_layers)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         finite = all(bool(torch.all(torch.isfinite(lg))) for lg in r.logits)
         ctx_lm = unsharded_ctx()
         plain_step = make_serve_step(cfg_lm, ctx_lm, use_kernels=False)
-        # The twin reuses the cache in place: at step i it rewrites position
-        # pos0 + i with its own k/v before reading it, and the kernel run's
-        # later rows lie past the valid prefix, so it sees what a fresh plain
-        # run fed the same tokens would.
-        worst, agree = 0.0, 0
-        for i in range(gen):
-            nxt, lg, _ = plain_step(r.params, r.cache, r.inputs[:, i:i + 1], r.pos0 + i)
-            lg = lg[:, 0]
-            worst = max(worst, float(torch.max(torch.abs(lg - r.logits[i])))
-                        / float(torch.max(torch.abs(lg))))
-            agree += int(torch.sum(nxt[:, 0].cpu() == torch.from_numpy(r.tokens[:, i])))
         row = {"phase": phase, "entry": "repro_torch.launch.serve.run", "argv": argv,
                "arch": cfg_lm.name, "d_model": cfg_lm.d_model, "layers": cfg_lm.num_layers,
-               "vocab": cfg_lm.vocab_size, "dtype": cfg_lm.dtype,
-               "params": cfg_lm.param_count(), "batch": b_, "prompt_len": r.prompt.shape[1],
+               "attention_layers": attn_layers, "vocab": cfg_lm.vocab_size,
+               "dtype": cfg_lm.dtype, "params": cfg_lm.param_count(), "batch": b_,
+               "prompt_len": r.prompt.shape[1], "pos0": r.pos0,
                "gen": gen, "prefill_s": r.prefill_s, "decode_s": r.decode_s,
                "decode_ms_per_token": r.decode_s / gen * 1e3, "wall_s": wall,
                "peak_memory_gb": peak_gb, "launches": counts, "expected_launches": want_counts,
                "tokens_first_request": r.tokens[0].tolist(), "logits_finite": finite,
-               "twin_max_logit_err_over_max_logit": worst,
-               "twin_tolerance": f"max|d logits| <= {LM_LOGIT_RTOL:g} * max|logits| per step",
-               "twin_argmax_agreement": agree / (b_ * gen)}
+               **(extra or {})}
+        if overflow:
+            fracs = [float(f) for f in overflow]
+            row.update({"moe_layers": len(fracs), "prefill_overflow_frac_mean":
+                        sum(fracs) / len(fracs), "prefill_overflow_frac_max": max(fracs)})
+        worst = 0.0
+        if attn_layers:
+            # The twin reuses the cache in place: at step i it rewrites
+            # position pos0 + i with its own k/v before reading it, and the
+            # kernel run's later rows lie past the valid prefix, so it sees
+            # what a fresh plain run fed the same tokens would.  SSD layers
+            # carry a state instead: it restarts from a second prefill of
+            # the same prompt, whose attention rows must equal the kernel
+            # run's before pos0 bit for bit.
+            if any("state" in c for c in r.cache):
+                params_, cfg_, batch_, max_len_, ctx_ = prefill_args[0]
+                _, cache0 = prefill(params_, cfg_, batch_, max_len_, ctx_)
+                repeat = True
+                for c, c0 in zip(r.cache, cache0):
+                    if "state" in c:
+                        for key in c:
+                            c[key].copy_(c0[key])
+                    else:
+                        repeat &= all(torch.equal(c[key][:, :, :r.pos0], c0[key][:, :, :r.pos0])
+                                      for key in c)
+                del cache0
+                row["twin_ssm_restart"] = "a second prefill of the prompt"
+                row["twin_prefill_repeats_bitwise"] = repeat
+                require(repeat, f"{phase}: a second prefill differs from the kernel run's")
+            # MoE top-k routing is discontinuous: two experts' router scores
+            # within the bf16 rounding of the attention output swap places,
+            # and the request then follows other experts.  So the twin takes
+            # the kernel run's expert choices (weighted by its own router's
+            # probabilities at them), and what it compares is the attention
+            # core.  Where its own router would have chosen otherwise, the
+            # choice must be a near-tie: the kernel run's experts lie within
+            # ROUTER_TIE_ULPS bf16 ulps (at the row's largest logit) below
+            # the twin's k-th logit.
+            forced = iter(routes["kernel"])
+            ties = {"short": [], "spacing": []}
+
+            def kernel_run_route(xt, router, k):
+                logits, probs, _, own = route(xt, router, k)
+                routes["twin"].append(own)
+                top_e = next(forced)
+                top_w = torch.gather(probs, -1, top_e)
+                top_w = top_w / torch.clamp_min(top_w.sum(dim=-1, keepdim=True), 1e-9)
+                ulp = torch.clamp_min(2.0 ** -8 * logits.abs().amax(-1, keepdim=True), 1e-30)
+                top = torch.topk(logits, k + 1, dim=-1).values
+                short = torch.clamp_min(top[..., k - 1:k] - torch.gather(logits, -1, top_e), 0)
+                ties["short"].append((short / ulp).amax(-1).flatten())
+                ties["spacing"].append(((top[..., k - 1:k] - top[..., k:]) / ulp).flatten())
+                return logits, probs, top_w, top_e
+
+            moe_mod._route = kernel_run_route
+            try:
+                agree = 0
+                for i in range(gen):
+                    nxt, lg, _ = plain_step(r.params, r.cache, r.inputs[:, i:i + 1],
+                                            r.pos0 + i)
+                    lg = lg[:, 0]
+                    worst = max(worst, float(torch.max(torch.abs(lg - r.logits[i])))
+                                / float(torch.max(torch.abs(lg))))
+                    agree += int(torch.sum(nxt[:, 0].cpu() == torch.from_numpy(r.tokens[:, i])))
+            finally:
+                moe_mod.moe_ffn, moe_mod._route = moe_ffn, route
+            require(next(forced, None) is None, f"{phase}: the twin made fewer MoE calls")
+            row.update({"twin_max_logit_err_over_max_logit": worst,
+                        "twin_tolerance": f"max|d logits| <= {LM_LOGIT_RTOL:g} * max|logits| "
+                                          f"per step",
+                        "twin_argmax_agreement": agree / r.tokens.size})
+            if routes["kernel"]:
+                differ = sum(int(torch.sum(torch.any(
+                    torch.sort(a, dim=-1).values != torch.sort(b, dim=-1).values, dim=-1)))
+                    for a, b in zip(routes["kernel"], routes["twin"]))
+                short, spacing = torch.cat(ties["short"]), torch.cat(ties["spacing"])
+                tie_max = float(short.max())
+                row.update({"twin_routing": "the kernel run's experts",
+                            "twin_own_router_differs": differ,
+                            "twin_routing_decisions": len(routes["kernel"]) * b_,
+                            "twin_flip_gap_max_ulps": tie_max,
+                            "twin_kth_spacing_median_ulps": float(spacing.median()),
+                            "twin_flips_within_1_ulp": int(torch.sum((short > 0) & (short <= 1))),
+                            "twin_flip_tolerance": f"gap <= {ROUTER_TIE_ULPS:g} bf16 ulps "
+                                                   f"(2^-8 * max|router logit| of the row)"})
+                require(tie_max <= ROUTER_TIE_ULPS,
+                        f"{phase}: a routing difference of {tie_max} ulps is not a near-tie")
+        else:
+            moe_mod.moe_ffn, moe_mod._route = moe_ffn, route
+            row["twin"] = ("none: no attention layer, so use_kernels=False runs the same "
+                           "code as the kernel run")
         if profile_step:
-            from torch.profiler import ProfilerActivity, profile
+            from repro_torch.models import ssm as ssm_mod
+            from torch.autograd import DeviceType
+            from torch.profiler import ProfilerActivity, profile, record_function
 
             step = make_serve_step(cfg_lm, ctx_lm)
             pos = r.pos0 + gen - 1  # re-decodes the last step, rewriting its cache row
@@ -3266,46 +3555,121 @@ def run() -> dict:
             step(r.params, r.cache, tok, pos)
             torch.cuda.synchronize()
             ops.reset_launch_counts()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                step(r.params, r.cache, tok, pos)
-                torch.cuda.synchronize()
-                step_s = time.perf_counter() - t0
+            # The MoE and SSD blocks' share of the step: each call in a
+            # "smoke::" range (host time of the range, device time of the
+            # kernels launched inside it).
+            ssm_decode = ssm_mod.ssm_decode
+
+            def ranged(name, fn):
+                def call(*a, **kw):
+                    with record_function(f"smoke::{name}"):
+                        return fn(*a, **kw)
+                return call
+
+            moe_mod.moe_ffn = ranged("moe_ffn", moe_ffn)
+            ssm_mod.ssm_decode = ranged("ssm_decode", ssm_decode)
+            try:
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    step(r.params, r.cache, tok, pos)
+                    torch.cuda.synchronize()
+                    step_s = time.perf_counter() - t0
+            finally:
+                moe_mod.moe_ffn, ssm_mod.ssm_decode = moe_ffn, ssm_decode
             by_kernel, calls = device_kernels(torch, prof)
             busy_s = sum(by_kernel.values()) / 1e6
             fd_us = sum(v for k_, v in by_kernel.items() if "flash_decode" in k_)
             fd_launches = ops.launch_counts()["flash_decode"]
-            b_ms, _ = bound_ms(2 * b_ * (pos + 1) * cfg_lm.num_kv_heads * cfg_lm.head_dim * 2, 0.0)
             row.update({
                 "profile_pos": pos, "profile_step_wall_ms": step_s * 1e3,
                 "profile_device_busy_ms": busy_s * 1e3,
                 "profile_device_idle_share": 1.0 - busy_s / step_s,
                 "flash_decode_launches_in_step": fd_launches,
                 "device_kernels_in_step": sum(calls.values()),
-                "flash_decode_device_ms_per_launch": fd_us / 1e3 / max(fd_launches, 1),
-                "flash_decode_bound_ms": b_ms,
                 "top_kernels_us_calls": [[k_[:90], v, calls.get(k_, 0)] for k_, v in
                                          sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]]})
+            if fd_launches:
+                b_ms, _ = bound_ms(2 * b_ * (pos + 1) * cfg_lm.num_kv_heads
+                                   * cfg_lm.resolved_head_dim * 2, 0.0)
+                row.update({"flash_decode_device_ms_per_launch": fd_us / 1e3 / fd_launches,
+                            "flash_decode_bound_ms": b_ms})
+            for name in ("moe_ffn", "ssm_decode"):
+                spans = [e for e in prof.events() if e.name == f"smoke::{name}"
+                         and e.device_type == DeviceType.CPU]
+                if spans:
+                    host_us = sum(e.cpu_time_total for e in spans)
+                    dev_us = sum(ch.device_time_total for e in spans for ch in e.cpu_children)
+                    row.update({f"profile_{name}_calls": len(spans),
+                                f"profile_{name}_host_share": host_us / 1e6 / step_s,
+                                f"profile_{name}_device_ms": dev_us / 1e3,
+                                f"profile_{name}_device_share_of_busy": dev_us / 1e6 / busy_s})
         emit(row)
-        require(r.tokens.shape == (b_, gen) and r.tokens.min() >= 0
+        want_shape = (b_, gen) + ((cfg_lm.num_codebooks,)
+                                  if cfg_lm.modality == "audio-codec" else ())
+        require(r.tokens.shape == want_shape and r.tokens.min() >= 0
                 and r.tokens.max() < cfg_lm.vocab_size, f"{phase}: tokens {r.tokens}")
         require(finite, f"{phase}: non-finite logits")
         require(counts == want_counts, f"{phase}: launches {counts} != {want_counts}")
         require(worst <= LM_LOGIT_RTOL, f"{phase}: kernel vs plain twin logits {worst}")
         if profile_step:
-            require(row["flash_decode_launches_in_step"] == cfg_lm.num_layers,
+            require(row["flash_decode_launches_in_step"] == attn_layers,
                     f"{phase}: profiled step launched {row['flash_decode_launches_in_step']}")
+        del r
+        torch.cuda.empty_cache()
         return counts
 
-    lm_phase("lm_serve", ["--arch", "qwen3-14b", "--batch", "4", "--prompt-len", "512",
-                          "--gen", "16"], False)
+    decode_by_path = {}
+    decode_by_path["lm_serve"] = lm_phase(
+        "lm_serve", ["--arch", "qwen3-14b", "--batch", "4", "--prompt-len", "512",
+                     "--gen", "16"], False)["flash_decode"]
     long_counts = lm_phase("lm_decode_long", ["--arch", "qwen3-14b", "--batch", "1",
                                               "--prompt-len", str(INPUT_SHAPES["decode_32k"].seq_len),
                                               "--gen", "16"], True)
+    decode_by_path["lm_decode_long"] = long_counts["flash_decode"]
     # The batch-4 run in float32 at 4 layers (11.5 GB of weights): the twin's
     # gap there is the kernel's own, without bfloat16's rounding.
-    lm_phase("lm_serve_f32", ["--arch", "qwen3-14b", "--batch", "4", "--prompt-len", "512",
-                              "--gen", "16", "--layers", "4", "--dtype", "float32"], False)
+    decode_by_path["lm_serve_f32"] = lm_phase(
+        "lm_serve_f32", ["--arch", "qwen3-14b", "--batch", "4", "--prompt-len", "512",
+                         "--gen", "16", "--layers", "4", "--dtype", "float32"],
+        False)["flash_decode"]
+    torch.cuda.empty_cache()
+
+    # 15b. The other nine LM presets served at full width (lm_family: B = 4,
+    # prompt 512, 16 tokens, bf16, random weights from seed 0; jamba cut to
+    # one repeat of its 8-layer pattern), gemma2-9b over an 8,192-token
+    # prompt where the 4,096 window binds, in bf16 and in float32 at 4
+    # layers, and the q_chunk prefill lever at two gemma2 layers.
+    t_family = time.perf_counter()
+    for arch in LM_FAMILY:
+        argv = ["--arch", arch, "--batch", "4", "--prompt-len", "512", "--gen", "16"]
+        cut = {}
+        if arch in LM_FAMILY_LAYERS:
+            argv += ["--layers", str(LM_FAMILY_LAYERS[arch])]
+            cut = {"depth_cut": f"{LM_FAMILY_LAYERS[arch]} of "
+                                f"{get_config(arch).num_layers} layers (weights "
+                                f"{get_config(arch).param_count() * 2 / 1e9:.1f} GB in bf16 "
+                                f"do not fit one card)"}
+        decode_by_path[f"lm_family {arch}"] = lm_phase(
+            "lm_family", argv, arch in LM_FAMILY_PROFILED, cut)["flash_decode"]
+    family_s = time.perf_counter() - t_family
+    t_gemma = time.perf_counter()
+    decode_by_path["lm_gemma2_long"] = lm_phase(
+        "lm_gemma2_long", ["--arch", "gemma2-9b", "--batch", "1", "--prompt-len",
+                           str(GEMMA_LONG_PROMPT), "--gen", "16"], False)["flash_decode"]
+    # Two local and two global layers in float32 (the 3.7 GB embedding
+    # dominates): the twin's gap is the kernel's softcap and window error
+    # without bfloat16's rounding.
+    decode_by_path["lm_gemma2_f32"] = lm_phase(
+        "lm_gemma2_f32", ["--arch", "gemma2-9b", "--batch", "1", "--prompt-len",
+                          str(GEMMA_LONG_PROMPT), "--gen", "16", "--layers", "4", "--dtype",
+                          "float32"], False)["flash_decode"]
+    gemma_s = time.perf_counter() - t_gemma
+    t_block = time.perf_counter()
+    blockwise_prefill(torch, gemma, dev)
+    emit({"phase": "lm_presets_time", "flash_decode_checks_s": presets_decode_s,
+          "lm_family_s": family_s, "lm_gemma2_s": gemma_s,
+          "blockwise_prefill_s": time.perf_counter() - t_block,
+          "total_s": presets_decode_s + time.perf_counter() - t_family})
     torch.cuda.empty_cache()
 
     # 16-18. Streaming LibSVM ingestion, the linear serving tier, faults and
@@ -3473,10 +3837,17 @@ def run() -> dict:
         {"name": "flash_decode", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
          "replaces": "src/repro/kernels/flash_decode.py:97",
-         "launches": long_counts["flash_decode"], "max_abs_err": fd_row["max_abs_err"],
+         "launches": long_counts["flash_decode"], "launches_by_path": decode_by_path,
+         "max_abs_err": fd_row["max_abs_err"],
+         "max_err_over_tol_all_shapes": max(r_["max_err_over_tol"] for r_ in decode_rows.values()),
          "ms": fd_row["kernel_ms"], "host_ms": fd_row["host_ms"], "plain_ms": fd_row["plain_ms"],
          "bound_ms": fd_row["bound_ms"], "bound_by": fd_row["bound_by"],
-         "library_ms": fd_row["library_ms"], "shape": fd_label + " (Hkv 8, group 5, Dh 128, bf16)"},
+         "library_ms": fd_row["library_ms"], "shape": fd_label + " (Hkv 8, group 5, Dh 128, bf16)",
+         "gemma2": {label: {f: row_[f] for f in ("kernel_ms", "plain_ms", "bound_ms",
+                                                  "library_ms", "library_max_abs_err",
+                                                  "rows_read")}
+                    for label, row_ in decode_rows.items()
+                    if label.startswith("gemma2-9b") and "kernel_ms" in row_}},
     ]})
     print(card, flush=True)
     return {"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

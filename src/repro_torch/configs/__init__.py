@@ -1,9 +1,7 @@
 """Config registry: ``get_config(arch_id)`` / ``--arch <id>``.
 
-Port of ``repro.configs``.  ``ARCHS`` holds only the LM presets the port
-can run (dense, global-attention, text); the reference's other presets
-raise ``KeyError`` from :func:`get_config` until their layers are ported
-(ROADMAP queue 1 item 11).  ``LINEAR`` holds the paper's
+Port of ``repro.configs``: ``ARCHS`` holds the reference's ten LM
+presets, in its order; ``LINEAR`` holds the paper's
 linear-classification presets (:mod:`repro_torch.configs.fdsvrg_linear`).
 """
 
@@ -11,38 +9,44 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import fdsvrg_linear, qwen3_14b
+from repro_torch.configs import (
+    fdsvrg_linear,
+    gemma2_9b,
+    granite_moe_1b_a400m,
+    jamba_v0_1_52b,
+    mamba2_2_7b,
+    minitron_4b,
+    musicgen_large,
+    olmoe_1b_7b,
+    paligemma_3b,
+    qwen3_14b,
+    smollm_360m,
+)
 from repro_torch.configs.base import INPUT_SHAPES, InputShape, LayerTemplate, ModelConfig
 
-ARCHS: dict[str, ModelConfig] = {c.name: c for c in [qwen3_14b.CONFIG]}
-
-# The reference's presets that need layers the port does not have yet
-# (MoE, SSM, vision and audio frontends, sliding window and softcaps on
-# the card).
-UNPORTED_ARCHS = (
-    "gemma2-9b",
-    "granite-moe-1b-a400m",
-    "jamba-v0.1-52b",
-    "mamba2-2.7b",
-    "minitron-4b",
-    "musicgen-large",
-    "olmoe-1b-7b",
-    "paligemma-3b",
-    "smollm-360m",
-)
+ARCHS: dict[str, ModelConfig] = {
+    c.name: c
+    for c in [
+        paligemma_3b.CONFIG,
+        smollm_360m.CONFIG,
+        qwen3_14b.CONFIG,
+        olmoe_1b_7b.CONFIG,
+        musicgen_large.CONFIG,
+        jamba_v0_1_52b.CONFIG,
+        minitron_4b.CONFIG,
+        mamba2_2_7b.CONFIG,
+        gemma2_9b.CONFIG,
+        granite_moe_1b_a400m.CONFIG,
+    ]
+}
 
 LINEAR = dict(fdsvrg_linear.CONFIGS)
 
 
 def get_config(arch: str) -> ModelConfig:
-    if arch in ARCHS:
-        return ARCHS[arch]
-    if arch in UNPORTED_ARCHS:
-        raise KeyError(
-            f"arch {arch!r} is not ported to repro_torch yet (ROADMAP queue 1 "
-            f"item 11); ported: {sorted(ARCHS)}"
-        )
-    raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCHS)}")
+    if arch not in ARCHS:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCHS)}")
+    return ARCHS[arch]
 
 
 def reduced_config(cfg: ModelConfig, tp: int = 1) -> ModelConfig:
@@ -91,7 +95,6 @@ __all__ = [
     "InputShape",
     "LayerTemplate",
     "ModelConfig",
-    "UNPORTED_ARCHS",
     "get_config",
     "reduced_config",
 ]

@@ -112,6 +112,12 @@ def _float_tensor(path: str, a: np.ndarray) -> torch.Tensor:
     raise TypeError(f"{path}: expected a float32 or bfloat16 array, got {a.dtype}")
 
 
+# Leaves that stay float32 whatever the weights' dtype: the norm scales
+# (a key holding "norm"), the MoE router and the SSD decay, step bias and
+# skip (as the reference's init_moe / init_ssm make them).
+F32_LEAVES = ("router", "a_log", "dt_bias", "d_skip")
+
+
 def lm_params(
     tree: dict, cfg: ModelConfig | None = None, device: torch.device | str = "cpu"
 ) -> dict:
@@ -119,25 +125,29 @@ def lm_params(
     (``jax.tree.map(np.asarray, params)``), leaf for leaf: the same keys,
     the stacked ``[R, ...]`` block leaves, the same bytes.
 
-    Checks: the structure (a dense global-attention text model: ``embed``,
-    optional ``lm_head``, ``blocks`` as a tuple of dicts, ``final_norm``),
-    float32 or bfloat16 leaves with the norm scales in float32 and the
-    weights in one dtype, one repeat count per block, and shapes that
-    agree with each other — and, given ``cfg``, with its widths (the
-    vocabulary may be padded to a multiple of 256) and its dtype.
+    Checks: the structure (``embed`` — ``[K, V, D]`` for audio —, optional
+    ``lm_head``, optional ``vision_proj``, ``blocks`` as a tuple of dicts
+    with an ``attn`` or ``ssm`` mixer and an optional ``ffn`` or ``moe``,
+    ``final_norm``), float32 or bfloat16 leaves with the norm scales and
+    :data:`F32_LEAVES` in float32 and every other weight in one dtype, one
+    repeat count per block, and shapes that agree with each other — and,
+    given ``cfg``, with its widths (the vocabulary may be padded to a
+    multiple of 256) and its dtype.
     """
     if not isinstance(tree, dict) or not isinstance(tree.get("blocks"), tuple):
         raise ValueError("expected the reference's params dict with a tuple of blocks")
-    extra = set(tree) - {"embed", "lm_head", "blocks", "final_norm"}
+    extra = set(tree) - {"embed", "lm_head", "vision_proj", "blocks", "final_norm"}
     if extra:
-        raise ValueError(f"unported parameter groups {sorted(extra)} (ROADMAP queue 1 item 11)")
+        raise ValueError(f"unknown parameter groups {sorted(extra)}")
     weight_dtypes: set[torch.dtype] = set()
 
     def leaf(path: str, a, want_shape: tuple) -> torch.Tensor:
         t = _float_tensor(path, a)
-        if "norm" in path.rsplit(".", 1)[-1]:
+        name = path.rsplit(".", 1)[-1]
+        if "norm" in name or name in F32_LEAVES:
             if t.dtype != torch.float32:
-                raise TypeError(f"{path}: norm scales are float32, got {t.dtype}")
+                raise TypeError(f"{path}: norm scales and {', '.join(F32_LEAVES)} are "
+                                f"float32, got {t.dtype}")
         else:
             weight_dtypes.add(t.dtype)
         if t.dim() != len(want_shape) or any(
@@ -146,48 +156,93 @@ def lm_params(
             raise ValueError(f"{path}: shape {tuple(t.shape)}, expected {want_shape}")
         return t.to(device)
 
-    embed = leaf("embed", tree["embed"], (None, None))
-    vocab, d = embed.shape
+    def group(path: str, sub: dict, shapes: dict) -> dict:
+        unknown = set(sub) - set(shapes)
+        if unknown:
+            raise ValueError(f"{path}: unknown leaves {sorted(unknown)}")
+        return {k: leaf(f"{path}.{k}", v, shapes[k]) for k, v in sub.items()}
+
+    audio = np.asarray(tree["embed"]).ndim == 3
+    embed = leaf("embed", tree["embed"], (None,) * (3 if audio else 2))
+    codebooks = embed.shape[0] if audio else 0
+    vocab, d = embed.shape[-2:]
+    lead = (codebooks,) if audio else ()
     out: dict = {"embed": embed}
     if "lm_head" in tree:
-        out["lm_head"] = leaf("lm_head", tree["lm_head"], (d, vocab))
+        out["lm_head"] = leaf("lm_head", tree["lm_head"], lead + (d, vocab))
+    elif audio:
+        raise ValueError("lm_head: the audio heads [K, D, V] are missing")
+    frontend = 0
+    if "vision_proj" in tree:
+        out["vision_proj"] = leaf("vision_proj", tree["vision_proj"], (None, d))
+        frontend = out["vision_proj"].shape[0]
     out["final_norm"] = leaf("final_norm", tree["final_norm"], (d,))
+    w = {k: 0 for k in ("heads", "kv_heads", "head_dim", "d_ff", "experts", "moe_d_ff",
+                        "ssm_state", "d_inner", "ssm_head_dim", "ssm_conv")}
     blocks = []
-    h = hkv = dh = ff = 0
     for i, block in enumerate(tree["blocks"]):
-        if set(block) - {"norm1", "norm2", "norm1_post", "norm2_post", "attn", "ffn"}:
-            raise ValueError(f"blocks[{i}]: unported layers {sorted(block)} "
-                             "(ROADMAP queue 1 item 11)")
+        path = f"blocks[{i}]"
+        if set(block) - {"norm1", "norm2", "norm1_post", "norm2_post", "attn", "ssm", "ffn",
+                         "moe"} or ("attn" in block) == ("ssm" in block):
+            raise ValueError(f"{path}: unexpected layers {sorted(block)}")
         r = np.asarray(block["norm1"]).shape[0]
-        attn = block["attn"]
-        _, _, h, dh = np.asarray(attn["wq"]).shape
-        hkv = np.asarray(attn["wk"]).shape[2]
-        shapes = {
-            "wq": (r, d, h, dh), "wk": (r, d, hkv, dh), "wv": (r, d, hkv, dh),
-            "wo": (r, h, dh, d), "q_norm": (r, dh), "k_norm": (r, dh),
-        }
-        new = {k: leaf(f"blocks[{i}].{k}", v, (r, d)) for k, v in block.items()
-               if k not in ("attn", "ffn")}
-        new["attn"] = {k: leaf(f"blocks[{i}].attn.{k}", v, shapes[k]) for k, v in attn.items()}
+        new = {k: leaf(f"{path}.{k}", v, (r, d)) for k, v in block.items()
+               if k.startswith("norm")}
+        if "attn" in block:
+            _, _, h, dh = np.asarray(block["attn"]["wq"]).shape
+            hkv = np.asarray(block["attn"]["wk"]).shape[2]
+            w.update(heads=h, kv_heads=hkv, head_dim=dh)
+            new["attn"] = group(f"{path}.attn", block["attn"], {
+                "wq": (r, d, h, dh), "wk": (r, d, hkv, dh), "wv": (r, d, hkv, dh),
+                "wo": (r, h, dh, d), "q_norm": (r, dh), "k_norm": (r, dh)})
+        else:
+            di = np.asarray(block["ssm"]["out_proj"]).shape[1]
+            nh = np.asarray(block["ssm"]["a_log"]).shape[1]
+            width, conv_dim = np.asarray(block["ssm"]["conv_w"]).shape[1:]
+            n = (conv_dim - di) // 2
+            w.update(d_inner=di, ssm_state=n, ssm_head_dim=di // max(nh, 1), ssm_conv=width)
+            new["ssm"] = group(f"{path}.ssm", block["ssm"], {
+                "in_proj": (r, d, 2 * di + 2 * n + nh), "conv_w": (r, width, di + 2 * n),
+                "conv_b": (r, di + 2 * n), "a_log": (r, nh), "dt_bias": (r, nh),
+                "d_skip": (r, nh), "out_norm": (r, di), "out_proj": (r, di, d)})
         if "ffn" in block:
             ff = np.asarray(block["ffn"]["w_up"]).shape[2]
-            fshapes = {"w_up": (r, d, ff), "w_gate": (r, d, ff), "w_down": (r, ff, d)}
-            new["ffn"] = {k: leaf(f"blocks[{i}].ffn.{k}", v, fshapes[k])
-                          for k, v in block["ffn"].items()}
+            w["d_ff"] = ff
+            new["ffn"] = group(f"{path}.ffn", block["ffn"], {
+                "w_up": (r, d, ff), "w_gate": (r, d, ff), "w_down": (r, ff, d)})
+        if "moe" in block:
+            _, e, _, f = np.asarray(block["moe"]["w_up"]).shape
+            w.update(experts=e, moe_d_ff=f)
+            new["moe"] = group(f"{path}.moe", block["moe"], {
+                "router": (r, d, e), "w_gate": (r, e, d, f), "w_up": (r, e, d, f),
+                "w_down": (r, e, f, d)})
         blocks.append(new)
     out["blocks"] = tuple(blocks)
     if len(weight_dtypes) > 1:
         raise TypeError(f"weights of more than one dtype: {sorted(map(str, weight_dtypes))}")
     if cfg is not None:
         want_vocab = (cfg.vocab_size, -(-cfg.vocab_size // 256) * 256)
-        hd = cfg.resolved_head_dim
-        got = (vocab, d, h, hkv, dh, ff, sum(np.asarray(b["norm1"]).shape[0]
-                                              for b in tree["blocks"]))
-        want = (vocab if vocab in want_vocab else want_vocab, cfg.d_model, cfg.num_heads,
-                cfg.num_kv_heads, hd, cfg.d_ff, cfg.num_layers)
-        if got != want or ("lm_head" in out) == cfg.tie_embeddings:
-            raise ValueError(f"params (vocab, d, heads, kv heads, head dim, d_ff, layers) "
-                             f"{got} do not fit {cfg.name}: {want}")
+        attn = cfg.has_attention
+        ssm = cfg.has_ssm
+        got = dict(w, vocab=vocab, d_model=d, codebooks=codebooks, frontend_dim=frontend,
+                   layers=sum(np.asarray(b["norm1"]).shape[0] for b in tree["blocks"]))
+        want = dict(
+            vocab=vocab if vocab in want_vocab else want_vocab, d_model=cfg.d_model,
+            heads=cfg.num_heads if attn else 0, kv_heads=cfg.num_kv_heads if attn else 0,
+            head_dim=cfg.resolved_head_dim if attn else 0,
+            d_ff=cfg.d_ff if any(t.ffn == "dense" for t in cfg.pattern) else 0,
+            experts=cfg.num_experts if cfg.has_moe else 0,
+            moe_d_ff=cfg.moe_d_ff if cfg.has_moe else 0,
+            ssm_state=cfg.ssm_state if ssm else 0,
+            d_inner=cfg.ssm_expand * cfg.d_model if ssm else 0,
+            ssm_head_dim=cfg.ssm_head_dim if ssm else 0, ssm_conv=cfg.ssm_conv if ssm else 0,
+            codebooks=cfg.num_codebooks if cfg.modality == "audio-codec" else 0,
+            frontend_dim=cfg.frontend_dim if cfg.modality == "vision" else 0,
+            layers=cfg.num_layers)
+        tied = "lm_head" not in out
+        if got != want or (tied != cfg.tie_embeddings and not audio):
+            diff = {k: (got[k], want[k]) for k in want if got[k] != want[k]}
+            raise ValueError(f"params do not fit {cfg.name}: (got, want) {diff}, tied {tied}")
         if str(next(iter(weight_dtypes))).split(".")[1] != cfg.dtype:
             raise TypeError(f"weights are {next(iter(weight_dtypes))}, {cfg.name} is {cfg.dtype}")
     return out

@@ -76,12 +76,13 @@ _SIGNATURES = (
     ("repro_svrg_update", _I, (_P, _P, _P, _P, _I, _F, _F, _P)),
     ("repro_fused_update", _I, (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P)),
     # Decode attention: q, k, v, the three split partials, out; B, Hkv,
-    # G, Dh; the k/v batch stride (64-bit); length, rows per split,
-    # splits; scale; the FLOAT_CODES code; the stream.
+    # G, Dh; the k/v batch stride (64-bit); the window's start, length,
+    # rows per split, splits; scale, softcap (0: none); the FLOAT_CODES
+    # code; the stream.
     (
         "repro_flash_decode",
         _I,
-        (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _I, _F, _I, _P),
+        (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _I, _I, _F, _F, _I, _P),
     ),
 )
 MAX_BLOCKS = 128  # touched.cuh's kMaxBlocks: the blocks a BlockRows holds

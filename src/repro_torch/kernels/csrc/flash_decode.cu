@@ -1,7 +1,13 @@
 // flash_decode: one-token GQA attention over a KV cache, a decode batch at once,
 //
-//     out[b, j, g, :] = sum_{s < length} softmax_s(scale * q[b, j, g] . k[b, s, j])
-//                                        * v[b, s, j]
+//     out[b, j, g, :] = sum_{start <= s < length} softmax_s(cap(scale * q[b, j, g] . k[b, s, j]))
+//                                                 * v[b, s, j]
+//
+// with cap(x) = softcap * tanhf(x / softcap) when a softcap is given (gemma2's
+// attention logit softcap, applied after the scale and before the max) and
+// the identity otherwise, and start = max(0, length - window) for a sliding
+// window (gemma2's local layers: the reference's (pos - kpos) < window at
+// pos = length - 1), else 0.
 //
 // q [B, Hkv, G, Dh], k and v [B, S, Hkv, Dh] (batch stride passed in, the
 // rest contiguous), float32 or bfloat16; out float32 [B, Hkv, G, Dh].
@@ -11,9 +17,10 @@
 // Replaces the Pallas TPU kernel repro/kernels/flash_decode.py
 // (flash_decode, the pallas_call at :97), which sweeps S sequentially per
 // KV head with an online-softmax accumulator in VMEM and masks with an
-// additive bias (0 / -1e30).  Here the positions at or past `length` are
-// skipped: in the reference each of them adds exp(-1e30 - m) = 0 in
-// float32, so skipping is exact.
+// additive bias (0 / -1e30).  Here the positions at or past `length`, and
+// those before `start`, are skipped: in the reference each of them adds
+// exp(-1e30 - m) = 0 in float32, so skipping is exact.  A window therefore
+// reads only its min(length, window) rows: the bytes bound is theirs.
 //
 // What bounds it on an H100: bytes.  Every K and V byte of the valid
 // prefix is read once: 2 * B * length * Hkv * Dh * sizeof(T), 134.2 MB in
@@ -43,7 +50,7 @@
 //   * P.V in float32 FFMA from shared memory: lane c owns Dh / 32 columns;
 //     the tile's weights p[g][row] go through a per-warp shared array (float4
 //     reads, 4 rows at a time).  P is never rounded to bfloat16.
-// Flash-decoding split over S for the parallelism: grid (B * Hkv, n_split);
+// Flash-decoding split over [start, length) for the parallelism: grid (B * Hkv, n_split);
 // warp w of a split takes its tiles w, w + 4, ...; each keeps (m, l, acc)
 // per head, m from -1e30 as in the TPU kernel; the warps combine in warp
 // order through shared memory.  With n_split == 1 that block divides by
@@ -55,17 +62,20 @@
 // and get weight 0.  expf, not __expf; size_t offsets (B = 4 at S =
 // 524,288 is 2.1e9 elements per tensor).  The wrapper
 // (kernels/flash_decode.py) owns the geometry (n_split, rows_per_split from
-// the card's SM count) and allocates the float32 split partials; the
-// launcher opts the split pass into its dynamic shared memory (up to 215 KB
-// at float32, Dh 128, G 16).
+// the card's SM count, over the window's span) and allocates the float32
+// split partials; the launcher opts the split pass into its dynamic shared
+// memory (up to 215 KB at float32, Dh 128, G 16).  The softcap is a
+// template flag (CAP) of both split passes: without it they compile to the
+// code they were before the flag existed.
 //
 // Preconditions (checked by the wrapper): q, k, v of one dtype (0 =
 // float32, 1 = bfloat16) on the current device, q and out contiguous, k
 // and v [S, Hkv, Dh] contiguous per request with the same batch stride, k,
 // v and their batch stride 16-byte aligned.  Returns cudaErrorInvalidValue
-// unless Dh is 32, 64, 128 or 256, 1 <= G <= 16, G * Dh <= 2048, 1 <=
-// length, 1 <= n_split <= 65535 and (n_split - 1) * rows_per_split <
-// length; else cudaGetLastError() after the launches.
+// unless Dh is 32, 64, 128 or 256, 1 <= G <= 16, G * Dh <= 2048, 0 <=
+// start < length, 1 <= n_split <= 65535, (n_split - 1) * rows_per_split <
+// length - start and softcap > 0 when given (softcap <= 0 means none); else
+// cudaGetLastError() after the launches.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -81,6 +91,17 @@ constexpr float kMaskValue = -1e30f;
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+
+// The attention logit softcap on a scaled score: tanhf (not tanh.approx), a
+// true division, as the plain version's softcap * tanh(scores / softcap).
+template <bool CAP>
+__device__ __forceinline__ float cap_score(float s, float softcap) {
+  if constexpr (CAP) {
+    return softcap * tanhf(s / softcap);
+  } else {
+    return s;
+  }
 }
 
 template <class T, int N>
@@ -180,15 +201,15 @@ __device__ __forceinline__ void finish_split(const float* wm, const float* wl,
   }
 }
 
-template <class T, int DH, int MAXG>
+template <class T, int DH, int MAXG, bool CAP>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, float* __restrict__ m_part,
                           float* __restrict__ l_part,
                           float* __restrict__ acc_part,
                           float* __restrict__ out, int hkv, int group,
-                          long long kv_bstride, int length, int rows_per_split,
-                          float scale) {
+                          long long kv_bstride, int start, int length,
+                          int rows_per_split, float scale, float softcap) {
   using G = Geo<T, DH>;
   constexpr int RT = G::RT;
   constexpr int P = 32 / RT;           // lanes per row in the score phase
@@ -211,7 +232,7 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = threadIdx.x; i < group * DH; i += kThreads) q_s[i] = to_f32(qb[i]);
   __syncthreads();
 
-  const int s_begin = split * rows_per_split;
+  const int s_begin = start + split * rows_per_split;
   const int s_end = min(length, s_begin + rows_per_split);
   const int n_tiles = (s_end - s_begin + RT - 1) / RT;
   const size_t row_stride = static_cast<size_t>(hkv) * DH;
@@ -287,7 +308,7 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float s = sc[g];
 #pragma unroll
         for (int o = 16; o >= RT; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-        s *= scale;
+        s = cap_score<CAP>(s * scale, softcap);
         float tmax = valid ? s : kMaskValue;
 #pragma unroll
         for (int o = RT / 2; o > 0; o >>= 1) {
@@ -417,15 +438,16 @@ __device__ __forceinline__ void split3(float x0, float x1, unsigned& hi,
 //     with ldmatrix.trans; three products per 8 columns.
 // The accumulators sum in the tensor cores' order, not in FFMA order: the
 // tolerance against the plain version is the same 2e-5 * max|v|.
-template <int DH>
+template <int DH, bool CAP>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ k,
                         const __nv_bfloat16* __restrict__ v,
                         float* __restrict__ m_part, float* __restrict__ l_part,
                         float* __restrict__ acc_part, float* __restrict__ out,
-                        int hkv, int group, long long kv_bstride, int length,
-                        int rows_per_split, float scale) {
+                        int hkv, int group, long long kv_bstride, int start,
+                        int length, int rows_per_split, float scale,
+                        float softcap) {
   using G = Geo<__nv_bfloat16, DH>;
   constexpr int RT = G::RT;
   static_assert(RT == 16, "one m16n8k16 k-step of P.V per tile");
@@ -456,7 +478,7 @@ flash_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
 
-  const int s_begin = split * rows_per_split;
+  const int s_begin = start + split * rows_per_split;
   const int s_end = min(length, s_begin + rows_per_split);
   const int n_tiles = (s_end - s_begin + RT - 1) / RT;
   const size_t row_stride = static_cast<size_t>(hkv) * DH;
@@ -514,7 +536,7 @@ flash_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) {
         const int r = (e >> 1) * 8 + 2 * tq + (e & 1);
         ok[e] = s0 + r < s_end;
-        x[e] = sc[e >> 1][2 * h + (e & 1)] * scale;
+        x[e] = cap_score<CAP>(sc[e >> 1][2 * h + (e & 1)] * scale, softcap);
         if (ok[e]) tmax = fmaxf(tmax, x[e]);
       }
       tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
@@ -643,8 +665,8 @@ struct Args {
   float* out;
   int batch_heads, hkv, group;
   long long kv_bstride;
-  int length, rows_per_split, n_split;
-  float scale;
+  int start, length, rows_per_split, n_split;
+  float scale, softcap;
   cudaStream_t stream;
 };
 
@@ -655,35 +677,40 @@ cudaError_t launch(K kernel, size_t smem, const Args& a) {
   if (err != cudaSuccess) return err;
   kernel<<<dim3(a.batch_heads, a.n_split), kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      a.m_part, a.l_part, a.acc_part, a.out, a.hkv, a.group, a.kv_bstride, a.length,
-      a.rows_per_split, a.scale);
+      a.m_part, a.l_part, a.acc_part, a.out, a.hkv, a.group, a.kv_bstride, a.start,
+      a.length, a.rows_per_split, a.scale, a.softcap);
   return cudaGetLastError();
 }
 
-template <class T, int DH>
+template <class T, int DH, bool CAP>
 cudaError_t dispatch_group(const Args& a) {
   if constexpr (sizeof(T) == 2 && DH <= 128) {  // bfloat16: the tensor cores
-    return launch<T>(flash_decode_mma_kernel<DH>, smem_bytes<T, DH>(a.group, true), a);
+    return launch<T>(flash_decode_mma_kernel<DH, CAP>, smem_bytes<T, DH>(a.group, true), a);
   } else {
     const size_t smem = smem_bytes<T, DH>(a.group, false);
-    if (a.group <= 1) return launch<T>(flash_decode_split_kernel<T, DH, 1>, smem, a);
-    if (a.group <= 4) return launch<T>(flash_decode_split_kernel<T, DH, 4>, smem, a);
-    if (a.group <= 8) return launch<T>(flash_decode_split_kernel<T, DH, 8>, smem, a);
+    if (a.group <= 1) return launch<T>(flash_decode_split_kernel<T, DH, 1, CAP>, smem, a);
+    if (a.group <= 4) return launch<T>(flash_decode_split_kernel<T, DH, 4, CAP>, smem, a);
+    if (a.group <= 8) return launch<T>(flash_decode_split_kernel<T, DH, 8, CAP>, smem, a);
     if constexpr (DH <= 128) {  // G * Dh <= 2048
-      return launch<T>(flash_decode_split_kernel<T, DH, 16>, smem, a);
+      return launch<T>(flash_decode_split_kernel<T, DH, 16, CAP>, smem, a);
     }
     return cudaErrorInvalidValue;
   }
 }
 
-template <class T>
+template <class T, bool CAP>
 cudaError_t dispatch_dh(const Args& a, int dh) {
   switch (dh) {
-    case 32: return dispatch_group<T, 32>(a);
-    case 64: return dispatch_group<T, 64>(a);
-    case 128: return dispatch_group<T, 128>(a);
-    default: return dispatch_group<T, 256>(a);  // checked by the entry point
+    case 32: return dispatch_group<T, 32, CAP>(a);
+    case 64: return dispatch_group<T, 64, CAP>(a);
+    case 128: return dispatch_group<T, 128, CAP>(a);
+    default: return dispatch_group<T, 256, CAP>(a);  // checked by the entry point
   }
+}
+
+template <class T>
+cudaError_t dispatch_cap(const Args& a, int dh) {
+  return a.softcap > 0.0f ? dispatch_dh<T, true>(a, dh) : dispatch_dh<T, false>(a, dh);
 }
 
 bool args_ok(int group, int dh, int dtype) {
@@ -698,19 +725,19 @@ extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
                                   float* m_part, float* l_part,
                                   float* acc_part, float* out, int batch,
                                   int hkv, int group, int dh,
-                                  long long kv_bstride, int length,
+                                  long long kv_bstride, int start, int length,
                                   int rows_per_split, int n_split, float scale,
-                                  int dtype, void* stream) {
-  if (!args_ok(group, dh, dtype) || batch < 1 || hkv < 1 || length < 1 ||
-      rows_per_split < 1 || n_split < 1 || n_split > 65535 ||
-      static_cast<long long>(n_split - 1) * rows_per_split >= length) {
+                                  float softcap, int dtype, void* stream) {
+  if (!args_ok(group, dh, dtype) || batch < 1 || hkv < 1 || start < 0 ||
+      length <= start || rows_per_split < 1 || n_split < 1 || n_split > 65535 ||
+      static_cast<long long>(n_split - 1) * rows_per_split >= length - start) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Args a{q, k, v, m_part, l_part, acc_part, out, batch * hkv, hkv, group,
-               kv_bstride, length, rows_per_split, n_split, scale,
+               kv_bstride, start, length, rows_per_split, n_split, scale, softcap,
                static_cast<cudaStream_t>(stream)};
-  const cudaError_t err = dtype == 0 ? dispatch_dh<float>(a, dh)
-                                     : dispatch_dh<__nv_bfloat16>(a, dh);
+  const cudaError_t err = dtype == 0 ? dispatch_cap<float>(a, dh)
+                                     : dispatch_cap<__nv_bfloat16>(a, dh);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_split > 1) {
     flash_decode_combine_kernel<<<a.batch_heads * group, dh, 0, a.stream>>>(

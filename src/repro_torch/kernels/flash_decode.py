@@ -1,6 +1,11 @@
 """flash_decode: one-token GQA attention over a KV cache, a decode batch at once.
 
-    out[b, j, g, :] = sum_{s < length} softmax_s(scale * q[b, j, g] . k[b, s, j]) * v[b, s, j]
+    out[b, j, g, :] = sum_{start <= s < length} softmax_s(cap(scale * q[b, j, g] . k[b, s, j]))
+                      * v[b, s, j]
+
+with ``cap(x) = softcap * tanh(x / softcap)`` for an attention logit
+softcap (gemma2) and the identity without one, and ``start = max(0,
+length - window)`` for a sliding window (gemma2's local layers), else 0.
 
 ``q [B, Hkv, G, Dh]``, ``k``/``v [B, S, Hkv, Dh]`` (float32 or bfloat16,
 one dtype), ``out`` float32 ``[B, Hkv, G, Dh]``; query head ``h = j * G +
@@ -15,19 +20,21 @@ through per-warp rings of K/V tiles in shared memory (``cp.async``), on
 the tensor cores in bfloat16 at ``Dh <= 128`` and in float32 FFMA
 otherwise, and leaves one ``(m, l, acc)`` per split; a second launch combines the splits
 in split order, or with one split the block writes ``out`` itself — one
-counted launch per call, no atomics.  Positions at or past ``length`` are
-skipped (exactly what their -1e30 bias does in float32).  This module
-owns the geometry (:func:`num_splits`, from the card's SM count) and
-allocates the partials.  Beside it is :func:`flash_decode_plain`, the
-arithmetic of ``repro.models.attention.attention_decode``: float32 scores
-over the whole cache, ``where(valid, ., -1e30)``, max, exp, sum, weighted
-sum, ``/ max(l, 1e-30)``; it also takes the reference decode's
-``softcap`` and sliding ``window``, which the kernel does not.
+counted launch per call, no atomics.  Positions at or past ``length``, and
+before a window's ``start``, are skipped (exactly what their -1e30 bias
+does in float32), so a window reads ``min(length, window)`` rows.  The
+softcap is ``tanhf`` on the scaled score, a compile-time flag of both
+split passes.  This module owns the geometry (:func:`num_splits`, from
+the card's SM count, over ``[start, length)``) and allocates the
+partials.  Beside it is :func:`flash_decode_plain`, the arithmetic of
+``repro.models.attention.attention_decode``: float32 scores over the
+whole cache, the softcap, ``where(valid, ., -1e30)`` with the window in
+``valid``, max, exp, sum, weighted sum, ``/ max(l, 1e-30)``.
 
 Stated tolerance, kernel vs plain on the card: ``|d| <= 2e-5 * max|v|``
 over the valid prefix (the scores' Dh products and the up to 524,288
-weighted terms are summed in other orders, ``expf`` against PyTorch's
-``exp``).  ``launches`` counts the wrapper's calls that launched.
+weighted terms are summed in other orders, ``expf`` and ``tanhf`` against
+PyTorch's ``exp`` and ``tanh``).  ``launches`` counts the wrapper's calls that launched.
 """
 
 from __future__ import annotations
@@ -88,19 +95,29 @@ def flash_decode_plain(
     return torch.einsum("bkgs,bskd->bkgd", p, v.float()) / torch.clamp_min(l, 1e-30)
 
 
+def window_start(length: int, window: int | None) -> int:
+    """The first position a query at ``length - 1`` sees: ``(pos - kpos) <
+    window`` holds from ``length - window`` on."""
+    return 0 if window is None else max(0, length - window)
+
+
 def flash_decode(
     q: torch.Tensor,  # [B, Hkv, G, Dh] contiguous
     k: torch.Tensor,  # [B, S, Hkv, Dh], each request's [S, Hkv, Dh] contiguous
     v: torch.Tensor,  # like k, with k's strides
     length: int,
     scale: float,
+    *,
+    softcap: float | None = None,
+    window: int | None = None,
 ) -> torch.Tensor:  # float32 [B, Hkv, G, Dh]
     """Launch the CUDA kernel on ``torch.cuda.current_stream()``.
 
     Raises on a CPU tensor, another dtype, a shape or layout the kernel
-    does not take, ``length < 1`` or ``length > S``, and on a non-zero
-    ``cudaGetLastError()``.  ``length`` and ``scale`` are host numbers,
-    so the call never waits on the card.
+    does not take, ``length < 1`` or ``length > S``, a softcap that is not
+    positive, a window below 1, and on a non-zero ``cudaGetLastError()``.
+    ``length``, ``scale``, ``softcap`` and ``window`` are host numbers, so
+    the call never waits on the card.
     """
     global launches
     if not q.is_cuda:
@@ -124,6 +141,11 @@ def flash_decode(
     s = k.shape[1]
     if not 1 <= length <= s:
         raise ValueError(f"flash_decode: length {length} outside [1, {s}]")
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"flash_decode: softcap {softcap} must be positive")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_decode: window {window} must be at least 1")
+    start = window_start(length, window)
     if dh not in HEAD_DIMS or not 1 <= group <= MAX_GROUP or group * dh > MAX_GROUP_X_DH:
         raise ValueError(f"flash_decode: Dh {dh} (one of {HEAD_DIMS}) and group {group} "
                          f"(<= {MAX_GROUP}, group * Dh <= {MAX_GROUP_X_DH}) not taken")
@@ -132,7 +154,7 @@ def flash_decode(
         raise ValueError(f"flash_decode: k, v and their batch stride must be aligned to "
                          f"{ALIGN} bytes")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_split, rows = num_splits(b * hkv, length, sms)
+    n_split, rows = num_splits(b * hkv, length - start, sms)
     out = torch.empty((b, hkv, group, dh), dtype=torch.float32, device=dev)
     m_part = l_part = acc_part = out  # one split: the kernel writes out alone
     if n_split > 1:
@@ -144,8 +166,8 @@ def flash_decode(
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.repro_flash_decode(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
-            acc_part.data_ptr(), out.data_ptr(), b, hkv, group, dh, k.stride(0), length,
-            rows, n_split, scale, code, stream,
+            acc_part.data_ptr(), out.data_ptr(), b, hkv, group, dh, k.stride(0), start,
+            length, rows, n_split, scale, 0.0 if softcap is None else softcap, code, stream,
         )
     _build.check(rc, "flash_decode")
     launches += 1

@@ -452,6 +452,8 @@ def decode_attention_batched(
     *,
     length: int,  # valid prefix, the same for the whole batch
     scale: float | None = None,
+    softcap: float | None = None,  # attention logit softcap on the scaled scores
+    window: int | None = None,  # sliding window: positions >= length - window
 ) -> torch.Tensor:  # float32 [B, Hkv, G, Dh]
     """One decode step's attention for a batch of requests at one layer:
     the kernel (one counted launch) on the card, its plain version on the
@@ -461,8 +463,9 @@ def decode_attention_batched(
         raise ValueError(f"decode_attention: length {length} outside [1, {k.shape[1]}]")
     scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
     if _route(q, "flash_decode"):
-        return _decode.flash_decode(q.contiguous(), k, v, length, scale)
-    return _decode.flash_decode_plain(q, k, v, length, scale)
+        return _decode.flash_decode(q.contiguous(), k, v, length, scale, softcap=softcap,
+                                    window=window)
+    return _decode.flash_decode_plain(q, k, v, length, scale, softcap=softcap, window=window)
 
 
 _COUNTED = (_scatter, _margin, _prox, _fused, _matvec, _logistic, _svrg, _decode)

@@ -8,18 +8,16 @@ so the ``[S, S]`` score matrix never materialises; decode keeps the cache
 
 The decode core goes through :func:`repro_torch.kernels.ops.decode_attention_batched`
 (``use_kernels=True``, the default): the ``flash_decode`` kernel on the
-card, its plain version on the CPU.  ``use_kernels=False`` takes the
-plain version on any device.  The kernel takes neither the attention
-logit softcap nor the sliding window (gemma2's layers): on the card
-those raise ``NotImplementedError`` with ``use_kernels=True``; the plain
-path keeps both.  :func:`attention_decode` writes the new token's k and v
-into the cache IN PLACE and returns the same dict (the reference returns
-a new cache).
+card, with the attention logit softcap and the sliding window (gemma2's
+layers), its plain version on the CPU.  ``use_kernels=False`` takes the
+plain version on any device.  :func:`attention_decode` writes the new
+token's k and v into the cache IN PLACE and returns the same dict (the
+reference returns a new cache).
 
-Supports: GQA/MQA, RoPE, qk-norm (qwen3), sliding window and attention
-logit softcap (plain paths).  The causal block-skipping lever
-(``q_chunk``, the reference's ``_attention_blockwise``) is not ported
-yet (ROADMAP queue 1 item 11) and raises.
+Supports: GQA/MQA, RoPE, qk-norm (qwen3), sliding window (gemma2 local
+layers), attention logit softcap (gemma2), and the causal block-skipping
+lever ``q_chunk`` (:func:`_attention_blockwise`: each query block visits
+only the key chunks its mask can reach).
 """
 
 from __future__ import annotations
@@ -51,7 +49,9 @@ class AttnConfig:
     attn_softcap: float | None = None
     norm_eps: float = 1e-6
     kv_chunk: int = 1024
-    q_chunk: int | None = None  # the reference's block-skipping lever (not ported)
+    # When set, queries are processed in blocks of q_chunk and each block
+    # only visits the key chunks its causal/window mask can reach.
+    q_chunk: int | None = None
 
     @property
     def group(self) -> int:
@@ -96,6 +96,46 @@ def _q_block(b: int, h: int, s: int, kv_chunk: int) -> int:
     return max(1, min(s, SCORE_BLOCK_BYTES // (4 * b * h * kv_chunk)))
 
 
+def _key_chunks(k, v, positions, cfg: AttnConfig, kc: int) -> list:
+    """Key chunks of ``kc`` positions in the order of the reference's scan,
+    each expanded to full heads (head h uses KV head h // group) in float32:
+    ``(k_r [B, kc, H, Dh], v_r, positions [B, kc])``."""
+    chunks = []
+    for c0 in range(0, k.shape[1], kc):
+        sl = slice(c0, c0 + kc)
+        k_r = torch.repeat_interleave(k[:, sl], cfg.group, dim=2).float()
+        v_r = torch.repeat_interleave(v[:, sl], cfg.group, dim=2).float()
+        chunks.append((k_r, v_r, positions[:, sl]))
+    return chunks
+
+
+def _attend(q_blk, qpos, chunks, cfg: AttnConfig, ctx, scale) -> torch.Tensor:
+    """Online softmax of the float32 query block ``q_blk [B, H, r, Dh]`` (at
+    ``qpos [B, r]``) over ``chunks``, one key chunk at a time: float32
+    ``[B, H, r, Dh]``, the reference's scan step for step."""
+    b, h, r, dh = q_blk.shape
+    acc = torch.zeros((b, h, r, dh), dtype=torch.float32, device=q_blk.device)
+    m = torch.full((b, h, r, 1), _MASK_VALUE, dtype=torch.float32, device=q_blk.device)
+    l = torch.zeros((b, h, r, 1), dtype=torch.float32, device=q_blk.device)
+    for k_r, v_r, kp in chunks:
+        scores = torch.einsum("bhsd,bchd->bhsc", q_blk, k_r) * scale
+        scores = softcap(scores, cfg.attn_softcap)
+        causal = kp[:, None, None, :] <= qpos[:, None, :, None]
+        if cfg.window is not None:
+            causal &= (qpos[:, None, :, None] - kp[:, None, None, :]) < cfg.window
+        scores = ctx.constrain(
+            scores.masked_fill_(~causal, _MASK_VALUE), "batch", "heads", None, None
+        )
+        m_new = torch.maximum(m, scores.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = scores.sub_(m_new).exp_()  # exp(scores - m_new), in place
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bhsc,bchd->bhsd", p, v_r)
+        m = m_new
+        del scores, p
+    return acc / torch.clamp_min(l, 1e-30)
+
+
 def attention_train(
     params: dict,
     x: torch.Tensor,  # [B, S, D]
@@ -114,52 +154,45 @@ def attention_train(
     q, k, v = _project_qkv(params, x, positions, cfg, ctx)
 
     if cfg.q_chunk is not None and s > cfg.q_chunk:
-        raise NotImplementedError(
-            "attention_train: the q_chunk block-skipping path (_attention_blockwise) "
-            "is not ported yet (ROADMAP queue 1 item 11)"
-        )
+        y = _attention_blockwise(q, k, v, positions, cfg, ctx, scale)
+        return y_project(params, y, ctx, x.dtype), (k, v)
 
     kv_chunk = min(kv_chunk, s)
     assert s % kv_chunk == 0, f"seq {s} % kv_chunk {kv_chunk} != 0"
-    n_chunks = s // kv_chunk
     qf = q.float()
-    # Key chunks in the order of the reference's scan; each expanded to
-    # full heads (head h uses KV head h // group).
-    chunks = []
-    for c in range(n_chunks):
-        sl = slice(c * kv_chunk, (c + 1) * kv_chunk)
-        k_r = torch.repeat_interleave(k[:, sl], cfg.group, dim=2).float()  # [B, kc, H, Dh]
-        v_r = torch.repeat_interleave(v[:, sl], cfg.group, dim=2).float()
-        chunks.append((k_r, v_r, positions[:, sl]))
-
+    chunks = _key_chunks(k, v, positions, cfg, kv_chunk)
     out = torch.empty((b, h, s, dh), dtype=torch.float32, device=x.device)
     rows = _q_block(b, h, s, kv_chunk)
     for q0 in range(0, s, rows):
         qs = slice(q0, min(s, q0 + rows))
-        q_blk = qf[:, :, qs]  # [B, H, r, Dh]
-        qpos = positions[:, qs]
-        r = q_blk.shape[2]
-        acc = torch.zeros((b, h, r, dh), dtype=torch.float32, device=x.device)
-        m = torch.full((b, h, r, 1), _MASK_VALUE, dtype=torch.float32, device=x.device)
-        l = torch.zeros((b, h, r, 1), dtype=torch.float32, device=x.device)
-        for k_r, v_r, kp in chunks:
-            scores = torch.einsum("bhsd,bchd->bhsc", q_blk, k_r) * scale
-            scores = softcap(scores, cfg.attn_softcap)
-            causal = kp[:, None, None, :] <= qpos[:, None, :, None]
-            if cfg.window is not None:
-                causal &= (qpos[:, None, :, None] - kp[:, None, None, :]) < cfg.window
-            scores = ctx.constrain(
-                scores.masked_fill_(~causal, _MASK_VALUE), "batch", "heads", None, None
-            )
-            m_new = torch.maximum(m, scores.amax(dim=-1, keepdim=True))
-            alpha = torch.exp(m - m_new)
-            p = scores.sub_(m_new).exp_()  # exp(scores - m_new), in place
-            l = l * alpha + p.sum(dim=-1, keepdim=True)
-            acc = acc * alpha + torch.einsum("bhsc,bchd->bhsd", p, v_r)
-            m = m_new
-            del scores, p
-        out[:, :, qs] = acc / torch.clamp_min(l, 1e-30)
+        out[:, :, qs] = _attend(qf[:, :, qs], positions[:, qs], chunks, cfg, ctx, scale)
     return y_project(params, out, ctx, x.dtype), (k, v)
+
+
+def _attention_blockwise(q, k, v, positions, cfg: AttnConfig, ctx, scale) -> torch.Tensor:
+    """Causal block-skipping flash attention (exact numerics).
+
+    Queries are processed q_chunk at a time; block i only scans the key
+    chunks its mask can reach: ``[lo_i, (i + 1) * qc)`` with ``lo_i = 0``
+    for global attention or the window's start aligned down to a key chunk
+    for sliding-window layers.  Assumes canonical positions (arange), which
+    train/prefill use.  Returns float32 ``[B, H, S, Dh]``.
+    """
+    b, h, s, dh = q.shape
+    qc = cfg.q_chunk
+    kc = min(cfg.kv_chunk, qc)
+    assert s % qc == 0 and qc % kc == 0, (s, qc, kc)
+    chunks = _key_chunks(k, v, positions, cfg, kc)
+    out = torch.empty((b, h, s, dh), dtype=torch.float32, device=q.device)
+    for i in range(s // qc):
+        qs = slice(i * qc, (i + 1) * qc)
+        hi = (i + 1) * qc
+        lo = 0
+        if cfg.window is not None:
+            lo = max(0, (i * qc - cfg.window) // kc * kc)
+        out[:, :, qs] = _attend(q[:, :, qs].float(), positions[:, qs],
+                                chunks[lo // kc: hi // kc], cfg, ctx, scale)
+    return out
 
 
 def y_project(params, out_f32, ctx, dtype):
@@ -203,15 +236,9 @@ def attention_decode(
     k[:, pos : pos + 1] = k_new
     v[:, pos : pos + 1] = v_new
 
-    plain_only = cfg.attn_softcap is not None or cfg.window is not None
-    if use_kernels and not plain_only:
-        out = ops.decode_attention_batched(qg, k, v, length=pos + 1, scale=scale)
-    elif use_kernels and x.is_cuda:
-        raise NotImplementedError(
-            "attention_decode: the flash_decode kernel takes no attention softcap or "
-            "sliding window (gemma2's layers; ROADMAP queue 1 item 11); pass "
-            "use_kernels=False for the plain path"
-        )
+    if use_kernels:
+        out = ops.decode_attention_batched(qg, k, v, length=pos + 1, scale=scale,
+                                           softcap=cfg.attn_softcap, window=cfg.window)
     else:
         out = flash_decode_lib.flash_decode_plain(
             qg, k, v, pos + 1, scale, softcap=cfg.attn_softcap, window=cfg.window

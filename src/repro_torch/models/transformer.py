@@ -1,13 +1,22 @@
-"""Decoder stack for dense, global-attention, text LMs (qwen3-14b).
+"""Composable decoder stack covering all six architecture families.
 
-Port of ``repro.models.transformer`` for ``global``/``dense`` layer
-templates.  A model is a repeating *pattern* of layer templates; the
+Port of ``repro.models.transformer``.  A model is a repeating *pattern*
+of layer templates (``configs/base.py``): dense LMs repeat (global
+attention, dense FFN); gemma2 repeats (local, dense), (global, dense);
+jamba repeats an 8-layer super-block of SSD/attention mixers with
+alternating dense/MoE FFNs; mamba2 repeats a pure SSD block.  The
 parameters of each pattern position are stacked along a leading repeat
 axis, the reference's layout: ``params["blocks"]`` is a tuple (one dict
 per pattern position) whose leaves are ``[R, ...]`` (``wq [R, D, H, Dh]``,
-``wo [R, H, Dh, D]``), and the cache is a tuple of ``{"k", "v"}`` with
-leaves ``[R, B, S, Hkv, Dh]``.  The reference drives the stack with
-``lax.scan`` (``models/unroll.py`` picks its unroll); here a Python loop
+``wo [R, H, Dh, D]``), and the cache is a tuple with, per pattern
+position, ``{"k", "v"}`` (leaves ``[R, B, S, Hkv, Dh]``) for an attention
+mixer or ``{"conv" [R, B, W-1, C], "state" [R, B, H, P, N] float32}`` for
+an SSD mixer.  The vision front end (paligemma) prepends
+``num_patches`` projected patch embeddings to the text; the audio front
+end (musicgen) sums ``num_codebooks`` token embeddings (``embed [K, V,
+D]``) and emits K logit heads (``lm_head [K, D, V]``).  The reference
+drives the stack with ``lax.scan`` (``models/unroll.py`` picks its
+unroll); here a Python loop
 over the repeats replaces the scan, so ``unroll.py`` has no counterpart.
 Parameters are plain tensors in dicts, never ``nn.Parameter``s, so no
 autograd graph is built.
@@ -19,9 +28,8 @@ Three execution modes share the layer code:
   * ``decode_step`` — one token in, one logits row out, the cache updated
                       IN PLACE (the reference returns a new cache)
 
-MoE, SSM, vision and audio branches raise ``NotImplementedError`` (ROADMAP
-queue 1 item 11); ``make_ctx``, ``param_specs`` and ``cache_specs`` come
-with its step 9.
+``make_ctx``, ``param_specs`` and ``cache_specs`` (the mesh rules) are
+not ported yet (ROADMAP queue 1, the LM mesh rules).
 """
 
 from __future__ import annotations
@@ -29,10 +37,13 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import LayerTemplate, ModelConfig
 from repro_torch.core.driver import resolve_device
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (
     embed_tokens,
     init_embedding,
@@ -46,12 +57,6 @@ from repro_torch.models.layers import (
 from repro_torch.sharding.specs import ShardingCtx
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-_NOT_PORTED = "is not ported to repro_torch yet (ROADMAP queue 1 item 11)"
-
-
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} {_NOT_PORTED}")
-
 
 # ---------------------------------------------------------------------------
 # Config plumbing
@@ -81,18 +86,43 @@ def attn_config(cfg: ModelConfig, tmpl: LayerTemplate) -> attn_lib.AttnConfig:
     )
 
 
+def ssm_config(cfg: ModelConfig) -> ssm_lib.SSMConfig:
+    return ssm_lib.SSMConfig(
+        d_model=cfg.d_model,
+        d_state=cfg.ssm_state,
+        expand=cfg.ssm_expand,
+        head_dim=cfg.ssm_head_dim,
+        conv_width=cfg.ssm_conv,
+        chunk=cfg.ssm_chunk,
+        norm_eps=cfg.norm_eps,
+        compute_dtype=cfg.ssm_compute_dtype,
+    )
+
+
+def moe_config(cfg: ModelConfig) -> moe_lib.MoEConfig:
+    return moe_lib.MoEConfig(
+        d_model=cfg.d_model,
+        d_ff=cfg.moe_d_ff,
+        num_experts=cfg.num_experts,
+        top_k=cfg.top_k,
+        capacity_factor=cfg.capacity_factor,
+        act=cfg.act,
+    )
+
+
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return DTYPES[cfg.dtype]
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.modality is not None:
-        raise _unported(f"the {cfg.modality} modality")
+    """Raise ``ValueError`` on a mixer, FFN or modality the stack does not know."""
+    if cfg.modality not in (None, "vision", "audio-codec"):
+        raise ValueError(f"unknown modality {cfg.modality!r}")
     for tmpl in cfg.pattern:
-        if tmpl.mixer not in ("global", "local"):
-            raise _unported(f"the {tmpl.mixer!r} mixer")
-        if tmpl.ffn != "dense":
-            raise _unported(f"the {tmpl.ffn!r} ffn")
+        if tmpl.mixer not in ("global", "local", "ssm"):
+            raise ValueError(tmpl.mixer)
+        if tmpl.ffn not in ("dense", "moe", "none"):
+            raise ValueError(tmpl.ffn)
 
 
 def _at(tree, r: int):
@@ -113,15 +143,16 @@ def _init_block(gen: torch.Generator, cfg: ModelConfig, tmpl: LayerTemplate) -> 
     if tmpl.mixer in ("global", "local"):
         p["attn"] = attn_lib.init_attention(gen, cfg.d_model, attn_config(cfg, tmpl), dtype)
     else:
-        raise _unported(f"the {tmpl.mixer!r} mixer")
+        p["ssm"] = ssm_lib.init_ssm(gen, ssm_config(cfg), dtype)
     if cfg.post_norm:
         p["norm1_post"] = init_rms_scale(cfg.d_model, gen.device)
     if tmpl.ffn == "dense":
         p["norm2"] = init_rms_scale(cfg.d_model, gen.device)
         p["ffn"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, gated=cfg.mlp_gated)
-    else:
-        raise _unported(f"the {tmpl.ffn!r} ffn")
-    if cfg.post_norm:
+    elif tmpl.ffn == "moe":
+        p["norm2"] = init_rms_scale(cfg.d_model, gen.device)
+        p["moe"] = moe_lib.init_moe(gen, moe_config(cfg), dtype)
+    if cfg.post_norm and tmpl.ffn != "none":
         p["norm2_post"] = init_rms_scale(cfg.d_model, gen.device)
     return p
 
@@ -157,9 +188,21 @@ def init_params(
     dtype = _dtype(cfg)
     vpad = padded_vocab(cfg, tp)
 
-    params: dict[str, Any] = {"embed": init_embedding(gen, vpad, cfg.d_model, dtype)}
-    if not cfg.tie_embeddings:
-        params["lm_head"] = normal(gen, (cfg.d_model, vpad), cfg.d_model ** -0.5, dtype)
+    params: dict[str, Any] = {}
+    if cfg.modality == "audio-codec":
+        k = cfg.num_codebooks
+        params["embed"] = torch.stack(
+            [init_embedding(gen, vpad, cfg.d_model, dtype) for _ in range(k)])  # [K, V, D]
+        params["lm_head"] = torch.stack(
+            [normal(gen, (cfg.d_model, vpad), cfg.d_model ** -0.5, dtype)
+             for _ in range(k)])  # [K, D, V]
+    else:
+        params["embed"] = init_embedding(gen, vpad, cfg.d_model, dtype)
+        if not cfg.tie_embeddings:
+            params["lm_head"] = normal(gen, (cfg.d_model, vpad), cfg.d_model ** -0.5, dtype)
+    if cfg.modality == "vision":
+        params["vision_proj"] = normal(gen, (cfg.frontend_dim, cfg.d_model),
+                                       cfg.frontend_dim ** -0.5, dtype)
 
     r = cfg.num_repeats
     blocks = []
@@ -182,10 +225,35 @@ def init_params(
 # ---------------------------------------------------------------------------
 
 
+def _embed_codebooks(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """Audio: the sum of the K codebooks' embeddings of tokens [B, S, K]."""
+    b, s, _ = tokens.shape
+    x = torch.zeros((b, s, cfg.d_model), dtype=_dtype(cfg), device=tokens.device)
+    for i in range(cfg.num_codebooks):
+        x = x + params["embed"][i][tokens[:, :, i].long()]
+    return x
+
+
 def embed_inputs(params, cfg: ModelConfig, batch: dict, ctx: ShardingCtx):
     """-> (x [B, S, D], positions [B, S], loss_mask [B, S])."""
-    if cfg.modality is not None:
-        raise _unported(f"the {cfg.modality} modality")
+    if cfg.modality == "vision":
+        tokens = batch["tokens"]  # [B, S_text]
+        patches = batch["patch_embeds"]  # [B, P, frontend_dim]
+        tx = embed_tokens(params["embed"], tokens, ctx, cfg.embed_scale)
+        px = torch.einsum("bpf,fd->bpd", patches.to(tx.dtype), params["vision_proj"])
+        px = ctx.constrain(px, "batch", None, "embed")
+        x = torch.cat([px, tx], dim=1)
+        b, s, _ = x.shape
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        loss_mask = torch.cat([torch.zeros((b, patches.shape[1]), device=x.device),
+                               torch.ones((b, tokens.shape[1]), device=x.device)], dim=1)
+        return x, positions, loss_mask
+    if cfg.modality == "audio-codec":
+        tokens = batch["tokens"]  # [B, S, K]
+        b, s, _ = tokens.shape
+        x = ctx.constrain(_embed_codebooks(params, cfg, tokens), "batch", "seq", "embed")
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        return x, positions, torch.ones((b, s), device=x.device)
     tokens = batch["tokens"]  # [B, S]
     x = embed_tokens(params["embed"], tokens, ctx, cfg.embed_scale)
     b, s = tokens.shape
@@ -194,8 +262,11 @@ def embed_inputs(params, cfg: ModelConfig, batch: dict, ctx: ShardingCtx):
 
 
 def output_logits(params, cfg: ModelConfig, x: torch.Tensor, ctx: ShardingCtx):
-    if cfg.modality is not None:
-        raise _unported(f"the {cfg.modality} modality")
+    """-> float32 logits [B, S, V], or [B, S, K, V] for audio."""
+    if cfg.modality == "audio-codec":
+        outs = [lm_logits(x, params["lm_head"][i], tied=False, cap=cfg.logit_softcap, ctx=ctx)
+                for i in range(cfg.num_codebooks)]
+        return torch.stack(outs, dim=2)
     table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     return lm_logits(x, table, tied=cfg.tie_embeddings, cap=cfg.logit_softcap, ctx=ctx)
 
@@ -213,46 +284,82 @@ def _apply_block_train(
 ):
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     cache_out = None
-    if tmpl.mixer not in ("global", "local"):
-        raise _unported(f"the {tmpl.mixer!r} mixer")
-    y, (k, v) = attn_lib.attention_train(p["attn"], h, positions, attn_config(cfg, tmpl), ctx)
-    if collect_cache:
-        cache_out = {
-            "k": ctx.constrain(k, "batch", "seq_kv", None, None),
-            "v": ctx.constrain(v, "batch", "seq_kv", None, None),
-        }
+    if tmpl.mixer in ("global", "local"):
+        y, (k, v) = attn_lib.attention_train(p["attn"], h, positions, attn_config(cfg, tmpl), ctx)
+        if collect_cache:
+            cache_out = {
+                "k": ctx.constrain(k, "batch", "seq_kv", None, None),
+                "v": ctx.constrain(v, "batch", "seq_kv", None, None),
+            }
+    else:
+        y = ssm_lib.ssm_train(p["ssm"], h, ssm_config(cfg), ctx)
+        if collect_cache:
+            cache_out = ssm_prefill_cache(p["ssm"], h, cfg, ctx)
     if cfg.post_norm:
         y = rms_norm(y, p["norm1_post"], cfg.norm_eps)
     x = x + y
     aux = dict(_ZERO_AUX)
     if tmpl.ffn != "none":
-        if tmpl.ffn != "dense":
-            raise _unported(f"the {tmpl.ffn!r} ffn")
         h = rms_norm(x, p["norm2"], cfg.norm_eps)
-        y = mlp(p["ffn"], h, cfg.act, ctx)
+        if tmpl.ffn == "dense":
+            y = mlp(p["ffn"], h, cfg.act, ctx)
+        else:
+            y, aux = moe_lib.moe_ffn(p["moe"], h, moe_config(cfg), ctx)
         if cfg.post_norm:
             y = rms_norm(y, p["norm2_post"], cfg.norm_eps)
         x = x + y
     return x, aux, cache_out
 
 
+def ssm_prefill_cache(p, h, cfg: ModelConfig, ctx) -> dict:
+    """The SSD mixer's serving cache after a prefill pass over ``h [B, S, D]``:
+    the last ``W - 1`` conv inputs and the final state, recomputed from one
+    extra projection and the closed form of the recurrence (so
+    ``ssm_train`` stays cache-free)."""
+    scfg = ssm_config(cfg)
+    b, s, _ = h.shape
+    di, n, w = scfg.d_inner, scfg.d_state, scfg.conv_width
+    proj = torch.einsum("bsd,de->bse", h, p["in_proj"])
+    z, xbc, dt_raw = ssm_lib._split_proj(proj, scfg)
+    conv = ssm_lib._causal_conv(xbc, p, w)
+    xs = conv[..., :di].reshape(b, s, scfg.num_heads, scfg.head_dim)
+    bmat = conv[..., di : di + n].float()
+    dt = ssm_lib._softplus(dt_raw.float() + p["dt_bias"])
+    a = -torch.exp(p["a_log"])
+    la = dt * a[None, None, :]  # [B, S, H]
+    # state = sum_s exp(sum_{s' > s} la) * dt_s * B_s (x) x_s
+    rev_cum = torch.flip(torch.cumsum(torch.flip(la, [1]), dim=1), [1]) - la
+    xd = xs.float() * (dt * torch.exp(rev_cum))[..., None]  # [B, S, H, P]
+    state = torch.einsum("bshp,bsn->bhpn", xd, bmat)
+    if s >= w - 1:
+        conv_tail = xbc[:, s - (w - 1):, :]
+    else:
+        conv_tail = F.pad(xbc, (0, 0, w - 1 - s, 0))
+    return {
+        "conv": conv_tail,
+        "state": ctx.constrain(state, "batch", "ssm_heads", None, None),
+    }
+
+
 def _apply_block_decode(
     tmpl: LayerTemplate, p, x, cache, pos: int, cfg: ModelConfig, ctx, *, use_kernels: bool = True
 ):
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    if tmpl.mixer not in ("global", "local"):
-        raise _unported(f"the {tmpl.mixer!r} mixer")
-    y, new_cache = attn_lib.attention_decode(
-        p["attn"], h, cache, pos, attn_config(cfg, tmpl), ctx, use_kernels=use_kernels
-    )
+    if tmpl.mixer in ("global", "local"):
+        y, new_cache = attn_lib.attention_decode(
+            p["attn"], h, cache, pos, attn_config(cfg, tmpl), ctx, use_kernels=use_kernels
+        )
+    else:
+        y, new_cache = ssm_lib.ssm_decode(p["ssm"], h, cache, ssm_config(cfg), ctx)
     if cfg.post_norm:
         y = rms_norm(y, p["norm1_post"], cfg.norm_eps)
     x = x + y
     if tmpl.ffn != "none":
-        if tmpl.ffn != "dense":
-            raise _unported(f"the {tmpl.ffn!r} ffn")
         h = rms_norm(x, p["norm2"], cfg.norm_eps)
-        y = mlp(p["ffn"], h, cfg.act, ctx)
+        if tmpl.ffn == "dense":
+            y = mlp(p["ffn"], h, cfg.act, ctx)
+        else:
+            y, _ = moe_lib.moe_ffn(p["moe"], h, moe_config(cfg), ctx)
         if cfg.post_norm:
             y = rms_norm(y, p["norm2_post"], cfg.norm_eps)
         x = x + y
@@ -286,19 +393,30 @@ def init_cache(
     ctx: ShardingCtx,
     device: torch.device | str = "cpu",
 ):
-    """Stacked cache: tuple over pattern positions of ``{"k", "v"}``,
-    leaves ``[R, B, max_len, Hkv, Dh]`` of zeros."""
+    """Stacked cache of zeros: tuple over pattern positions of ``{"k", "v"}``
+    (leaves ``[R, B, max_len, Hkv, Dh]``) for attention mixers and of
+    ``{"conv" [R, B, W-1, C], "state" [R, B, H, P, N] float32}`` for SSD
+    mixers."""
     _check_supported(cfg)
     dtype = _dtype(cfg)
     r = cfg.num_repeats
     caches = []
     for tmpl in cfg.pattern:
-        acfg = attn_config(cfg, tmpl)
-        shape = (r, batch, max_len, acfg.num_kv_heads, acfg.head_dim)
-        caches.append({
-            "k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-        })
+        if tmpl.mixer in ("global", "local"):
+            acfg = attn_config(cfg, tmpl)
+            shape = (r, batch, max_len, acfg.num_kv_heads, acfg.head_dim)
+            caches.append({
+                "k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device),
+            })
+        else:
+            scfg = ssm_config(cfg)
+            conv = (r, batch, scfg.conv_width - 1, scfg.d_inner + 2 * scfg.d_state)
+            state = (r, batch, scfg.num_heads, scfg.head_dim, scfg.d_state)
+            caches.append({
+                "conv": torch.zeros(conv, dtype=dtype, device=device),
+                "state": torch.zeros(state, dtype=torch.float32, device=device),
+            })
     return tuple(caches)
 
 
@@ -306,20 +424,23 @@ def decode_step(
     params,
     cfg: ModelConfig,
     cache,
-    tokens: torch.Tensor,  # [B, 1]
+    tokens: torch.Tensor,  # [B, 1] (or [B, 1, K] audio)
     pos: int,  # host int position, the same for the whole batch
     ctx: ShardingCtx,
     extra: dict | None = None,
     *,
     use_kernels: bool = True,
 ):
-    """-> (logits [B, 1, V], cache), the cache written in place at ``pos``.
+    """-> (logits [B, 1, (K,) V], cache), the cache written in place (at
+    ``pos`` for attention, the SSD state and conv window for SSD mixers).
     With ``use_kernels`` the attention core is the ``flash_decode`` kernel
-    on the card (one launch per layer) and its plain version on the CPU;
-    without, the plain version everywhere."""
-    if cfg.modality is not None:
-        raise _unported(f"the {cfg.modality} modality")
-    x = embed_tokens(params["embed"], tokens, ctx, cfg.embed_scale)
+    on the card (one launch per attention layer) and its plain version on
+    the CPU; without, the plain version everywhere.  Vision decodes text
+    tokens only: the patches were consumed at prefill."""
+    if cfg.modality == "audio-codec":
+        x = _embed_codebooks(params, cfg, tokens)
+    else:
+        x = embed_tokens(params["embed"], tokens, ctx, cfg.embed_scale)
     for r in range(cfg.num_repeats):
         for tmpl, p, c in zip(cfg.pattern, params["blocks"], cache):
             x, _ = _apply_block_decode(
@@ -332,18 +453,23 @@ def decode_step(
 def prefill(params, cfg: ModelConfig, batch: dict, max_len: int, ctx: ShardingCtx):
     """Forward pass that also builds the serving cache.
 
-    Returns (last_logits [B, 1, V], cache with the prefix written and room
-    up to max_len).  Each layer's k and v go straight into the
-    preallocated cache; logits are computed for the last position only."""
+    Returns (last_logits [B, 1, (K,) V], cache with the prefix written and
+    room up to max_len).  Each layer's k and v (or SSD conv window and
+    state) go straight into the preallocated cache; logits are computed
+    for the last position only."""
     x, positions, _ = embed_inputs(params, cfg, batch, ctx)
     b, s, _ = x.shape
     cache = init_cache(cfg, b, max(max_len, s), ctx, device=x.device)
     for r in range(cfg.num_repeats):
         x = ctx.constrain(x, "batch", "seq", "embed")
         for tmpl, p, c in zip(cfg.pattern, params["blocks"], cache):
-            x, _, kv = _apply_block_train(tmpl, _at(p, r), x, positions, cfg, ctx, True)
-            c["k"][r, :, :s] = kv["k"]
-            c["v"][r, :, :s] = kv["v"]
-            del kv
+            x, _, layer = _apply_block_train(tmpl, _at(p, r), x, positions, cfg, ctx, True)
+            if tmpl.mixer in ("global", "local"):
+                c["k"][r, :, :s] = layer["k"]
+                c["v"][r, :, :s] = layer["v"]
+            else:
+                c["conv"][r] = layer["conv"]
+                c["state"][r] = layer["state"]
+            del layer
     x = rms_norm(x[:, -1:, :], params["final_norm"], cfg.norm_eps)
     return output_logits(params, cfg, x, ctx), cache

@@ -2,10 +2,10 @@
 
 Port of the part of ``repro.sharding.specs`` that the model code calls:
 :meth:`ShardingCtx.constrain` (here the identity) and
-:func:`unsharded_ctx`.  The mesh rules, ``param_specs`` and
-``cache_specs`` come with the rest of the LM scaffolding (ROADMAP queue 1
-item 11 step 9); the model code already names its logical axes, so they
-slot in there.
+:func:`unsharded_ctx`.  The mesh rules (``make_ctx``, ``param_specs``,
+``cache_specs``) wait in ROADMAP queue 1, after training and the launch
+tools; the model code already names its logical axes, so they slot in
+there.
 """
 
 from __future__ import annotations

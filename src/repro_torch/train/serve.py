@@ -19,7 +19,7 @@ def make_serve_step(cfg: ModelConfig, ctx: ShardingCtx, *, use_kernels: bool = T
 
     One decode step for a batch of requests at a shared position.  Greedy
     sampling over the real vocabulary: the padded tail is masked with
-    -1e30 before ``argmax``.  ``use_kernels=False`` takes the plain decode
+    -1e30 before ``argmax`` (per codebook for audio: ``[B, 1, K]``).  ``use_kernels=False`` takes the plain decode
     attention on any device.
     """
 
@@ -50,20 +50,22 @@ def greedy_generate(
     params,
     cfg: ModelConfig,
     ctx: ShardingCtx,
-    prompt: torch.Tensor,  # [B, S0] int
+    prompt: torch.Tensor,  # [B, S0] int (or [B, S0, K] audio)
     steps: int,
     max_len: int,
     extra: dict | None = None,
     *,
     use_kernels: bool = True,
-) -> torch.Tensor:  # [B, steps] int32
-    """Prefill the prompt then decode ``steps`` greedy tokens.  As in the
-    reference, the first step re-decodes the last prompt token at position
-    ``S0 - 1``, rewriting its cache row."""
+) -> torch.Tensor:  # [B, steps] (or [B, steps, K]) int32
+    """Prefill the prompt (with ``extra``, e.g. vision's ``patch_embeds``)
+    then decode ``steps`` greedy tokens.  As in the reference, the first
+    step re-decodes the last prompt token at position ``S0 - 1`` (after the
+    ``num_patches`` positions of a vision prefix), rewriting its cache
+    row."""
     batch = {"tokens": prompt, **(extra or {})}
     _, cache = transformer.prefill(params, cfg, batch, max_len, ctx)
     serve_step = make_serve_step(cfg, ctx, use_kernels=use_kernels)
-    pos0 = prompt.shape[1]
+    pos0 = prompt.shape[1] + (cfg.num_patches if cfg.modality == "vision" else 0)
     tok = prompt[:, -1:]
     tokens = []
     for i in range(steps):

@@ -25,8 +25,11 @@ against PyTorch's, summed in other orders):
   ``launch.serve.main`` tokens equal.
 
 The ``cuda``-marked tests hold the ``flash_decode`` kernel against its
-plain version, and the kernel path of ``decode_step`` against the plain
-path, on a card; they skip here.  ``python tests/test_torch_lm.py``
+plain version (also with gemma2's attention softcap and sliding window,
+at gemma2's and paligemma's decode shapes), and the kernel path of
+``decode_step`` against the plain path (also for reduced MoE, hybrid and
+SSM models), on a card; they skip here.  The other presets' CPU parity
+is in ``tests/test_torch_lm_family.py``.  ``python tests/test_torch_lm.py``
 prints the worst readings against these tolerances.
 """
 
@@ -141,40 +144,81 @@ def small_model():
 # ---------------------------------------------------------------------------
 
 
+# param_count() of the reference's presets (its own formula, run on both).
+PARAM_COUNTS = {
+    "paligemma-3b": 2_508_589_056, "smollm-360m": 361_759_680, "qwen3-14b": 14_767_887_360,
+    "olmoe-1b-7b": 6_919_030_784, "musicgen-large": 3_229_616_128,
+    "jamba-v0.1-52b": 51_458_347_008, "minitron-4b": 4_190_112_768,
+    "mamba2-2.7b": 2_700_352_000, "gemma2-9b": 9_241_103_872,
+    "granite-moe-1b-a400m": 1_334_579_200,
+}
+
+
 def test_configs_match_reference():
+    """All ten LM presets, in the reference's order: the same fields, the
+    same numbers, the same reduced variants and parameter counts."""
     assert [f.name for f in dataclasses.fields(ModelConfig)] == \
         [f.name for f in dataclasses.fields(type(r_get_config("qwen3-14b")))]
-    t_cfg, r_cfg = get_config("qwen3-14b"), r_get_config("qwen3-14b")
-    assert dataclasses.asdict(t_cfg) == dataclasses.asdict(r_cfg)
-    assert t_cfg.param_count() == r_cfg.param_count() == 14_767_887_360
-    assert dataclasses.asdict(reduced_config(t_cfg)) == dataclasses.asdict(r_reduced_config(r_cfg))
+    assert list(ARCHS) == list(R_ARCHS) and len(ARCHS) == 10
+    for arch in R_ARCHS:
+        t_cfg, r_cfg = get_config(arch), r_get_config(arch)
+        assert dataclasses.asdict(t_cfg) == dataclasses.asdict(r_cfg), arch
+        assert dataclasses.asdict(reduced_config(t_cfg)) == \
+            dataclasses.asdict(r_reduced_config(r_cfg)), arch
+        assert t_cfg.param_count() == r_cfg.param_count() == PARAM_COUNTS[arch], arch
+        assert t_cfg.active_param_count() == r_cfg.active_param_count(), arch
     assert {k: dataclasses.asdict(v) for k, v in INPUT_SHAPES.items()} == \
         {k: dataclasses.asdict(v) for k, v in R_INPUT_SHAPES.items()}
-    assert list(ARCHS) == ["qwen3-14b"] and set(LINEAR) == set(R_LINEAR)
+    assert set(LINEAR) == set(R_LINEAR)
     assert fdsvrg_linear.CONFIGS.keys() == R_LINEAR.keys()
 
 
 def test_get_config_raises_for_unported_arch():
+    """Every reference preset resolves; only an unknown arch raises."""
     for arch in R_ARCHS:
-        if arch not in ARCHS:
-            with pytest.raises(KeyError, match="ROADMAP queue 1 item 11"):
-                get_config(arch)
+        assert get_config(arch).name == arch
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-arch")
 
 
 def test_unported_layers_and_levers_raise():
+    """Every layer pattern and modality the reference builds builds here
+    too (init, prefill, one decode step on the CPU), and the q_chunk lever
+    runs; only what the reference refuses raises."""
     cfg = dataclasses.replace(get_config("qwen3-14b"), **SMALL)
-    for pattern in ((LayerTemplate("ssm", "none"),), (LayerTemplate("global", "moe"),)):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
-            t_tf.init_params(dataclasses.replace(cfg, pattern=pattern), 0, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
-        t_tf.init_params(dataclasses.replace(cfg, modality="vision"), 0, "cpu")
-    acfg = t_attn.AttnConfig(num_heads=4, num_kv_heads=2, head_dim=16, q_chunk=8)
+    moe = dict(num_experts=4, top_k=2, moe_d_ff=32, capacity_factor=4.0)
+    ssm = dict(ssm_state=8, ssm_head_dim=16, ssm_chunk=8)
+    variants = [
+        dict(pattern=(LayerTemplate("ssm", "none"),), num_heads=0, num_kv_heads=0, **ssm),
+        dict(pattern=(LayerTemplate("global", "moe"),), **moe),
+        dict(pattern=(LayerTemplate("local", "dense"), LayerTemplate("ssm", "moe")),
+             sliding_window=4, **moe, **ssm),
+        dict(modality="vision", frontend_dim=24, num_patches=3),
+        dict(modality="audio-codec", num_codebooks=3, tie_embeddings=False),
+    ]
+    for kw in variants:
+        vcfg = dataclasses.replace(cfg, **kw)
+        params = t_tf.init_params(vcfg, 0, "cpu", tp=1)
+        tokens = torch.zeros((1, 5) + ((3,) if kw.get("modality") == "audio-codec" else ()),
+                             dtype=torch.int64)
+        batch = {"tokens": tokens}
+        if kw.get("modality") == "vision":
+            batch["patch_embeds"] = torch.ones((1, 3, 24))
+        last, cache = t_tf.prefill(params, vcfg, batch, 12, CTX)
+        pos = 5 + (3 if kw.get("modality") == "vision" else 0)
+        step, _ = t_tf.decode_step(params, vcfg, cache, tokens[:, -1:], pos, CTX)
+        assert step.shape == last.shape and bool(torch.all(torch.isfinite(step)))
+    for kw, exc in ((dict(pattern=(LayerTemplate("conv", "dense"),)), ValueError),
+                    (dict(pattern=(LayerTemplate("global", "sparse"),)), ValueError),
+                    (dict(modality="video"), ValueError)):
+        with pytest.raises(exc):
+            t_tf.init_params(dataclasses.replace(cfg, **kw), 0, "cpu")
+    acfg = t_attn.AttnConfig(num_heads=4, num_kv_heads=2, head_dim=16, q_chunk=8, kv_chunk=8)
     params = t_attn.init_attention(torch.Generator().manual_seed(0), 32, acfg, torch.float32)
-    x = torch.zeros((1, 16, 32))
-    with pytest.raises(NotImplementedError, match="_attention_blockwise"):
-        t_attn.attention_train(params, x, torch.arange(16)[None], acfg, CTX)
+    x = torch.randn((1, 16, 32), generator=torch.Generator().manual_seed(1))
+    y, _ = t_attn.attention_train(params, x, torch.arange(16)[None], acfg, CTX)
+    want = t_attn.attention_ref(params, x, torch.arange(16)[None], acfg, CTX)
+    assert float(torch.max(torch.abs(y - want))) <= 3e-5 + 3e-4 * float(torch.max(torch.abs(want)))
 
 
 # ---------------------------------------------------------------------------
@@ -581,15 +625,97 @@ def test_decode_step_kernel_path_matches_plain_on_card(cuda_device, dtype):
 
 @pytest.mark.cuda
 def test_softcap_and_window_raise_on_card(cuda_device):
-    for kw in (dict(attn_softcap=30.0), dict(window=8)):
+    """gemma2's layers on the card: attention_decode with the softcap and
+    the window runs the kernel (one launch a call) and agrees with the
+    plain path."""
+    for kw in (dict(attn_softcap=30.0), dict(window=8), dict(attn_softcap=50.0, window=5)):
         cfg = t_attn.AttnConfig(num_heads=4, num_kv_heads=2, head_dim=32, **kw)
         params = t_attn.init_attention(torch.Generator(cuda_device).manual_seed(0), 64, cfg,
                                        torch.float32)
-        cache = t_attn.init_kv_cache(1, 8, cfg, torch.float32, CTX, cuda_device)
-        x = torch.zeros((1, 1, 64), device=cuda_device)
-        with pytest.raises(NotImplementedError, match="gemma2"):
-            t_attn.attention_decode(params, x, cache, 0, cfg, CTX)
-        t_attn.attention_decode(params, x, cache, 0, cfg, CTX, use_kernels=False)
+        cache = t_attn.init_kv_cache(1, 16, cfg, torch.float32, CTX, cuda_device)
+        twin = {k: c.clone() for k, c in cache.items()}
+        xs = torch.randn((12, 1, 1, 64), generator=torch.Generator(cuda_device).manual_seed(1),
+                         device=cuda_device)
+        before = decode_mod.launches
+        for t in range(12):
+            got, cache = t_attn.attention_decode(params, xs[t], cache, t, cfg, CTX)
+            want, twin = t_attn.attention_decode(params, xs[t], twin, t, cfg, CTX,
+                                                 use_kernels=False)
+            torch.cuda.synchronize()
+            assert float(torch.max(torch.abs(got - want))) <= 1e-5 * float(
+                torch.max(torch.abs(want))) + 1e-6
+        assert decode_mod.launches == before + 12
+
+
+# gemma2-9b (Hkv 8, G 2, Dh 256) and paligemma-3b (Hkv 1, G 8, Dh 256) in
+# bfloat16, the Dh 128 tensor-core pass, and float32.
+CAP_SHAPES = [(1, 8, 2, 256, torch.bfloat16), (4, 8, 2, 256, torch.bfloat16),
+              (2, 1, 8, 256, torch.bfloat16), (2, 4, 5, 128, torch.bfloat16),
+              (2, 2, 3, 64, torch.float32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hkv,group,dh,dtype", CAP_SHAPES)
+@pytest.mark.parametrize("softcap,window", [(50.0, None), (None, 100), (50.0, 100),
+                                            (30.0, 1), (50.0, 5000)])
+@pytest.mark.parametrize("length", [1, 99, 100, 101, 777, 4097])
+def test_flash_decode_softcap_and_window_on_card(cuda_device, b, hkv, group, dh, dtype, softcap,
+                                                 window, length):
+    """The kernel with the attention softcap and the sliding window against
+    its plain version: lengths inside, at and past the window, one split
+    and several, within 2e-5 * max|v| of the window's rows."""
+    rng = np.random.default_rng(length * dh + group)
+    q = _t(rng.normal(size=(b, hkv, group, dh)).astype(np.float32) * 4).to(cuda_device, dtype)
+    k, v = (_t(rng.normal(size=(b, length + 3, hkv, dh)).astype(np.float32)).to(cuda_device, dtype)
+            for _ in range(2))
+    scale = dh ** -0.5
+    before = decode_mod.launches
+    got = decode_mod.flash_decode(q, k, v, length, scale, softcap=softcap, window=window)
+    want = decode_mod.flash_decode_plain(q, k, v, length, scale, softcap=softcap, window=window)
+    torch.cuda.synchronize()
+    assert decode_mod.launches == before + 1
+    assert torch.equal(got, decode_mod.flash_decode(q, k, v, length, scale, softcap=softcap,
+                                                    window=window))
+    start = decode_mod.window_start(length, window)
+    tol = 2e-5 * float(torch.max(torch.abs(v[:, start:length].float())))
+    assert float(torch.max(torch.abs(got - want))) <= tol
+    with pytest.raises(ValueError, match="softcap"):
+        decode_mod.flash_decode(q, k, v, length, scale, softcap=0.0)
+    with pytest.raises(ValueError, match="window"):
+        decode_mod.flash_decode(q, k, v, length, scale, window=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "jamba-v0.1-52b", "mamba2-2.7b"])
+def test_reduced_moe_and_ssm_decode_step_on_card(cuda_device, arch):
+    """A reduced MoE, hybrid and SSM model on the card: prefill then
+    decode_step, the kernel path against the plain path and against the
+    same model on the CPU, flash_decode launched once per attention layer
+    and step; two kernel-path runs bit for bit."""
+    cfg = reduced_config(get_config(arch))
+    params = t_tf.init_params(cfg, 0, cuda_device, tp=1)
+    prompt = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab_size, size=(3, 9)))
+    attn_layers = sum(t.mixer != "ssm" for t in cfg.pattern) * cfg.num_repeats
+
+    fed = torch.from_numpy(np.random.default_rng(5).integers(0, cfg.vocab_size, size=(4, 3, 1)))
+
+    def run(device, use_kernels):
+        p = jax.tree.map(lambda a: a.to(device), params)
+        _, cache = t_tf.prefill(p, cfg, {"tokens": prompt.to(device)}, 16, CTX)
+        outs = []
+        for i, pos in enumerate(range(9, 13)):
+            logits, cache = t_tf.decode_step(p, cfg, cache, fed[i].to(device), pos, CTX,
+                                             use_kernels=use_kernels)
+            outs.append(logits.cpu())
+        return torch.stack(outs)
+
+    ops.reset_launch_counts()
+    got = run(cuda_device, True)
+    assert ops.launch_counts()["flash_decode"] == 4 * attn_layers
+    assert torch.equal(got, run(cuda_device, True))
+    scale = float(torch.max(torch.abs(got)))
+    assert float(torch.max(torch.abs(got - run(cuda_device, False)))) <= 1e-5 * scale
+    assert float(torch.max(torch.abs(got - run("cpu", True)))) <= 1e-4 * scale
 
 
 if __name__ == "__main__":
