@@ -101,7 +101,25 @@ path's configuration cut to 500 inner steps an outer, the butterfly run
 twice bit for bit ``run_fdsvrg(q=8)`` at that cut, a psum run within a
 stated tolerance, ``solve(ExperimentSpec(mesh=))`` bitwise, every rank's
 launches and meter exact; then one NCCL rank, bitwise ``run_fdsvrg(q=1)``,
-and one NCCL rank a card where the host has several.
+and one NCCL rank a card where the host has several (its stderr
+must not hold NCCL's "Guessing device ID" warning).
+Then LM training (``lm_train_paths``; no kernel of the port lies on that
+path, so every launch count stays 0): ``repro_torch.launch.train`` with
+its defaults for smollm-360m at full width and depth (``lm_train``: 30
+steps of 8 x 256, bf16 compute, float32 masters, adamw; ce falls; s/step,
+tokens/s, the model-FLOP share, peak memory of a step with its per-repeat
+remat and once without, one profiled step's kernels and the idle share
+over the run's unprofiled s/step, two
+3-step runs from seed 0 bitwise or the leaves that differ, a
+checkpoint's restore and the step after it against the uninterrupted
+step), at train_4k's 4,096 positions with grad_accum 2 (``lm_train_4k``:
+peak with remat, and without it the peak or the out-of-memory error),
+granite-moe-1b-a400m at full width and depth (``lm_train_moe``), every
+other preset at full width cut to one repeat of its pattern (jamba at
+``reduced_config``; ``lm_train_family``; where ce rises, the same steps
+again with a float32 compute copy and at a tenth of the lr), and one step at
+``reduced_config`` on the CPU and on the card within the CPU tests'
+tolerances (``lm_train_cpu_vs_card``).
 Each phase prints one JSON line; the last line is the result object
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 without printing it, as does a machine without a CUDA device or a
@@ -220,6 +238,40 @@ GEMMA_LONG_PROMPT = 8192  # twice gemma2's 4,096 window
 # masked terms are exp(-1e30 - m) = 0, or are scaled by exactly 0 once a
 # real score arrives), and the chunks it visits are summed in the same order.
 BLOCKWISE_Q_CHUNK = 1024
+# LM training (launch.train's defaults: batch 8, seq 256, lr 3e-3, adamw).
+# The model-FLOP share is 6 * N * tokens/s over the H100 SXM's dense
+# bfloat16 tensor-core peak (NVIDIA data sheet), N every parameter (the
+# active ones for MoE).
+PEAK_BF16_FLOP_PER_S = 989e12
+LM_TRAIN_STEPS = 30
+LM_TRAIN_REPEAT_STEPS = 3  # two runs from seed 0, held bitwise
+# smollm-360m at train_4k's 4,096 positions, grad_accum 2, with remat.
+# tools/train_memory.py's sweep fits 8, 16, 24 and 32 in a fresh process
+# (peak 23.9, 41.1, 58.4, 75.7 GB on an H100); after lm_train, 32 ran out
+# of memory with 13.1 GiB reserved but unallocated (its 12 GiB float32
+# logits found no block), so the phase runs the largest batch that fits
+# here, 24.
+LM_TRAIN_4K_BATCH = 24
+LM_TRAIN_4K_STEPS = 2
+LM_TRAIN_MOE_STEPS = 10
+# Every other preset at full width, cut to one repeat of its pattern
+# (jamba-v0.1-52b: one repeat is 13.27e9 parameters, over 200 GB of
+# training state, so it runs at reduced_config); batch 2, 3 steps, seq
+# 256 (paligemma-3b 512: 256 of them are its patches).
+LM_TRAIN_FAMILY = ("qwen3-14b", "gemma2-9b", "minitron-4b", "olmoe-1b-7b", "mamba2-2.7b",
+                   "paligemma-3b", "musicgen-large", "jamba-v0.1-52b")
+LM_TRAIN_FAMILY_SEQ = {"paligemma-3b": 512}
+# The CPU-against-card check of one train step at reduced_config (float32,
+# TF32 off): tests/test_torch_train.py's tolerances against the reference
+# (metrics rtol = atol = 1e-5; each gradient leaf within 1e-4 * its
+# largest; masters within 2e-5 where the gradient is at least 1e-2 of its
+# leaf's largest, within half of adamw's lr everywhere).
+TRAIN_LR = 1e-3
+TRAIN_METRIC_TOL = 1e-5
+TRAIN_GRAD_RTOL = 1e-4
+TRAIN_MASTER_ATOL = 2e-5
+TRAIN_DETERMINED = 1e-2
+TRAIN_ADAMW_ATOL = 0.5 * TRAIN_LR
 # Float operations per replayed or touched feature, for bound_ms: the
 # dense step 5 (+4 with a prox, +1 with elastic net); the proba step 6
 # (+6 with a prox, +4 with elastic net).
@@ -308,15 +360,19 @@ def lost_records(us: dict[str, float], calls: dict[str, int],
     return missing_us, records
 
 
-def traced_outer(torch, run, ops, tries: int = 3):
+def traced_outer(torch, run, ops, tries: int = 5):
     """``run()`` (one outer) under the profiler, from launch counts of 0:
     its wall seconds, device us and records by kernel name, the estimate of
     the lost records' us and each launched counter's records beside its
-    launches.  Traces again, up to ``tries`` times, while a launched
-    counter has no record; fails after that."""
+    launches.  Traces again, a second later, up to ``tries`` times, while
+    a launched counter has no record (an FD-SAGA outer of ~58,000 kernels
+    once lost every snapshot record in 3 tries in a row); fails after
+    that."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(tries):
+    for attempt in range(tries):
+        if attempt:
+            time.sleep(1.0)
         ops.reset_launch_counts()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -1504,6 +1560,29 @@ def _nccl_rank(mesh, blockdir: str, s: dict) -> dict:
                                   for mode in ("psum", "butterfly")}}
 
 
+def stderr_of(fn):
+    """``fn()`` with file descriptor 2 (this process's and, inherited, its
+    spawned children's) sent to a file: (its result, what was written
+    there), which is passed on to the real stderr as well."""
+    import tempfile
+
+    sys.stderr.flush()
+    saved = os.dup(2)
+    with tempfile.TemporaryFile() as f:
+        os.dup2(f.fileno(), 2)
+        try:
+            out = fn()
+        finally:
+            sys.stderr.flush()
+            os.dup2(saved, 2)
+            os.close(saved)
+            f.seek(0)
+            text = f.read().decode(errors="replace")
+            sys.stderr.write(text)
+            sys.stderr.flush()
+    return out, text
+
+
 def sharded_path(torch, ops, data, bd8_cpu, bd8, bd1, main_cfg, loss, reg, workdir,
                  parts=("gloo", "nccl", "nccl_cards")) -> dict:
     """The multi-device driver at full-width news20 (q = 8, u = 1), the
@@ -1690,7 +1769,9 @@ def sharded_path(torch, ops, data, bd8_cpu, bd8, bd1, main_cfg, loss, reg, workd
         ops.reset_launch_counts()
         one = run_fdsvrg(None, balanced(data.dim, 1), loss, reg, cfg, block_data=bd1,
                          use_kernels=True)
-        nccl, nccl_s = spawn(1, _nccl_rank, "q1", "nccl", "cuda:0")
+        (nccl, nccl_s), nccl_err = stderr_of(lambda: spawn(1, _nccl_rank, "q1", "nccl",
+                                                           "cuda:0"))
+        guessed = "Guessing device ID" in nccl_err
         nccl_runs = nccl["ranks"][0]
         nccl_ok = {mode: bool(torch.equal(nccl["w"][mode], one.w.cpu()))
                    and nccl_runs[mode]["objectives"] == one.objectives().tolist()
@@ -1698,6 +1779,7 @@ def sharded_path(torch, ops, data, bd8_cpu, bd8, bd1, main_cfg, loss, reg, workd
         emit({"phase": "sharded_path", "entry": "spawn_ranks(1, backend='nccl')", "ranks": 1,
               "backend": "nccl", "q": 1, "spawn_s": nccl_s,
               "bitwise_run_fdsvrg_q1": nccl_ok,
+              "stderr_guessing_device_id": guessed,
               "objectives": nccl_runs["butterfly"]["objectives"],
               "run_fdsvrg_q1_objectives": one.objectives().tolist(),
               "launches": {k: v["launches"] for k, v in nccl_runs.items()},
@@ -1708,6 +1790,8 @@ def sharded_path(torch, ops, data, bd8_cpu, bd8, bd1, main_cfg, loss, reg, workd
               "note": "collective_share in the timed runs only (CUDA events)"})
         require(all(nccl_ok.values()),
                 f"sharded_path: one NCCL rank vs run_fdsvrg(q=1): {nccl_ok}")
+        require(not guessed, "sharded_path: the NCCL rank guessed its device "
+                             "(init_process_group without device_id)")
         require(all(v["launches"] == per_rank and v["staged"] == 0
                     for v in nccl_runs.values()),
                 "sharded_path: the NCCL rank's launches or staging")
@@ -1750,6 +1834,346 @@ def sharded_path(torch, ops, data, bd8_cpu, bd8, bd1, main_cfg, loss, reg, workd
     emit({"phase": "sharded_path", "entry": "phase", "wall_s": time.perf_counter() - t_phase,
           "limit_s": SHARDED_LIMIT_S})
     return launches
+
+
+def _train_line(torch, phase: str, r, wall_s: float, peak_gb: float, extra: dict) -> dict:
+    """One training run's JSON line: ce before and after, s/step after the
+    first step, tokens/s, the model-FLOP share, peak memory."""
+    from repro_torch.optim.optimizers import tree_leaves
+
+    cfg, steps = r.cfg, len(r.metrics)
+    ce = [float(m["ce"]) for m in r.metrics]
+    steady_s = (r.total_s - r.first_step_s) / (steps - 1) if steps > 1 else r.total_s
+    n_params = sum(p.numel() for p in tree_leaves(r.state["params"]))
+    active = n_params if not cfg.has_moe else \
+        n_params - (cfg.param_count() - cfg.active_param_count())
+    return {"phase": phase, "entry": "repro_torch.launch.train.run", "arch": cfg.name,
+            "layers": cfg.num_layers, "d_model": cfg.d_model, "dtype": cfg.dtype,
+            "params": n_params, "active_params": active, "steps": steps,
+            "ce_first": ce[0], "ce_last": ce[-1], "ce_last5_mean": sum(ce[-5:]) / len(ce[-5:]),
+            "metrics_last": {k: float(v) for k, v in r.metrics[-1].items()},
+            "finite": all(bool(torch.isfinite(v)) for m in r.metrics for v in m.values()),
+            "first_step_s": r.first_step_s, "s_per_step": steady_s,
+            "wall_s": wall_s, "peak_memory_gb": peak_gb, **extra}
+
+
+def _per_token(line: dict, tokens_per_step: int, card: str) -> None:
+    tok_s = tokens_per_step / line["s_per_step"]
+    line.update({"tokens_per_step": tokens_per_step, "tokens_per_s": tok_s,
+                 "model_flop_share": 6 * line["active_params"] * tok_s / PEAK_BF16_FLOP_PER_S,
+                 "model_flop_share_of": f"6 * N * tokens/s / {PEAK_BF16_FLOP_PER_S:g} "
+                                        f"(bf16 dense peak), N = "
+                                        f"{'active' if line['active_params'] != line['params'] else 'all'}"
+                                        f" parameters, on {card}"})
+
+
+def _trained(torch, argv, **kw):
+    """``launch.train.run(argv)`` from a clean peak counter: (run, wall s,
+    peak GB)."""
+    from repro_torch.launch import train as train_mod
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r = train_mod.run(argv, **kw)
+    wall = time.perf_counter() - t0
+    return r, wall, torch.cuda.max_memory_allocated() / 1e9
+
+
+def _step_peak_gb(torch, step, state, batch, remat: bool):
+    """Peak memory (GB) of one step from ``state``; ``remat=False`` swaps
+    the per-repeat remat wrapper for the identity for this one step.
+    Returns (peak GB, None) or (None, the OOM's message)."""
+    from repro_torch.models import transformer as tf_mod
+
+    wrapper = tf_mod._remat
+    if not remat:
+        tf_mod._remat = lambda fn, *args: fn(*args)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        out = step(state, batch)
+        torch.cuda.synchronize()
+        del out
+        return torch.cuda.max_memory_allocated() / 1e9, None
+    except torch.OutOfMemoryError as err:
+        return None, str(err).splitlines()[0][:300]
+    finally:
+        tf_mod._remat = wrapper
+        torch.cuda.empty_cache()
+
+
+def _repeatable_ops(torch, cfg, tokens) -> dict:
+    """The scatter-adds of a train step's backward, each run twice on the
+    same inputs at this run's shapes: do they repeat bit for bit?  The
+    embedding's backward (index_put_ with accumulate over the batch's
+    token ids) and a gather's backward (scatter_add_, the MoE dispatch's)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    d = cfg.d_model
+    ids = tokens.reshape(-1).long()
+    g = torch.randn((ids.numel(), d), generator=gen, device="cuda").to(torch.bfloat16)
+
+    def index_put():
+        out = torch.zeros((cfg.vocab_size, d), dtype=torch.bfloat16, device="cuda")
+        return out.index_put_((ids,), g, accumulate=True)
+
+    def scatter_add():
+        out = torch.zeros((cfg.vocab_size, d), dtype=torch.float32, device="cuda")
+        return out.scatter_add_(0, ids[:, None].expand(-1, d), g.float())
+
+    return {name: bool(torch.equal(fn(), fn())) for name, fn in
+            (("index_put_ accumulate (embedding backward)", index_put),
+             ("scatter_add_ (gather backward)", scatter_add))}
+
+
+def _leaf_names(tree, prefix: str = "") -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaf_names(tree[k], f"{prefix}.{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree) for x in _leaf_names(v, f"{prefix}[{i}]")]
+    return [(prefix, tree)]
+
+
+def _differing(a, b) -> list:
+    """Names of the leaves of two nests that are not bitwise equal."""
+    import torch
+
+    return [n for (n, x), (_, y) in zip(_leaf_names(a), _leaf_names(b))
+            if not torch.equal(x, y)]
+
+
+def lm_train_paths(torch, card: str) -> dict:
+    """LM training on the card (slice 14): ``lm_train`` (smollm-360m at
+    full width and depth through ``launch.train``'s defaults), its
+    repeatability, checkpoint resume, profile and peak memory with and
+    without remat; ``lm_train_4k`` (train_4k's length, grad_accum 2);
+    ``lm_train_moe`` (granite-moe-1b-a400m, full); ``lm_train_family``
+    (every other preset at full width, one repeat of its pattern); and a
+    CPU-against-card check of one step at reduced_config.  Returns the
+    phases' seconds."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import INPUT_SHAPES, get_config, reduced_config
+    from repro_torch.data.token_stream import PipelineConfig, batches
+    from repro_torch.optim import optimizers as opt_mod
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+    from repro_torch.sharding.specs import unsharded_ctx
+    from repro_torch.train import loop as loop_mod
+
+    times = {}
+    ctx = unsharded_ctx()
+    t_phase = time.perf_counter()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+
+    # lm_train: python -m repro_torch.launch.train --arch smollm-360m --steps 30
+    argv = ["--arch", "smollm-360m", "--steps", str(LM_TRAIN_STEPS)]
+    r, wall, peak = _trained(torch, argv)
+    cfg = r.cfg
+    a = r  # the run whose state the checks below continue from
+    line = _train_line(torch, "lm_train", r, wall, peak,
+                       {"argv": argv, "batch": 8, "seq": 256, "lr": 3e-3, "optimizer": "adamw",
+                        "remat": True, "memory_before_gb": base_gb})
+    _per_token(line, 8 * 256, card)
+    require(line["finite"], "lm_train: a non-finite metric")
+    require(line["ce_last5_mean"] < line["ce_first"],
+            f"lm_train: ce did not fall ({line['ce_first']} -> {line['ce_last5_mean']})")
+    opt = opt_mod.adamw(3e-3)
+    step = loop_mod.make_train_step(cfg, ctx, opt, a.settings)
+    it = batches(cfg, PipelineConfig(8, 256, seed=1))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in next(it).items()}
+    # peak memory of one step, with remat and once without
+    line["step_peak_gb_remat"], _ = _step_peak_gb(torch, step, a.state, batch, True)
+    line["step_peak_gb_no_remat"], oom = _step_peak_gb(torch, step, a.state, batch, False)
+    require(oom is None, f"lm_train: out of memory without remat: {oom}")
+    # one step profiled: device kernels per step and the idle share, the
+    # device's busy time over the run's unprofiled s/step (the profiler
+    # slows the host) and, apart, over the profiled step's own wall
+    from torch.profiler import ProfilerActivity, profile
+
+    step(a.state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = step(a.state, batch)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+    del out
+    by_kernel, calls = device_kernels(torch, prof)
+    busy_s = sum(by_kernel.values()) / 1e6
+    line.update({"device_idle_share": 1.0 - busy_s / line["s_per_step"],
+                 "device_idle_share_of": "1 - profiled device busy / s_per_step",
+                 "profile_step_wall_ms": step_s * 1e3, "profile_device_busy_ms": busy_s * 1e3,
+                 "profile_device_idle_share": 1.0 - busy_s / step_s,
+                 "device_kernels_in_step": sum(calls.values()),
+                 "top_kernels_us_calls": [[k[:90], v, calls.get(k, 0)] for k, v in
+                                          sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]]})
+    # two runs of 3 steps from seed 0
+    rep = [_trained(torch, ["--arch", "smollm-360m", "--steps", str(LM_TRAIN_REPEAT_STEPS)],
+)[0] for _ in range(2)]
+    differ = _differing((rep[0].state, rep[0].metrics), (rep[1].state, rep[1].metrics))
+    line["two_runs_bitwise"] = not differ
+    line["two_runs_differing_leaves"] = differ[:12]
+    line["ops_repeat_bitwise"] = _repeatable_ops(torch, cfg, batch["tokens"])
+    del rep
+    # save, restore, step again: equal to the uninterrupted step?
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        path = os.path.join(workdir, "state")
+        ckpt.save(path, a.state)
+        restored = ckpt.restore(path, tree_map(torch.zeros_like, a.state))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    line["restore_bitwise"] = not _differing(restored, a.state)
+    s1, m1 = step(a.state, batch)
+    s2, m2 = step(restored, batch)
+    s3, m3 = step(a.state, batch)
+    line["resume_step_bitwise"] = not _differing((s1, m1), (s2, m2))
+    line["step_repeats_bitwise"] = not _differing((s1, m1), (s3, m3))
+    line["resume_differing_leaves"] = _differing((s1, m1), (s2, m2))[:12]
+    del s1, s2, s3, m1, m2, m3, restored, a, r, step
+    line["card"] = card
+    emit(line)
+    require(line["restore_bitwise"], "lm_train: the restored state is not the saved one")
+    require(line["resume_step_bitwise"] or not line["step_repeats_bitwise"],
+            "lm_train: a step from the restored state differs while the step repeats")
+    times["lm_train"] = time.perf_counter() - t_phase
+
+    # lm_train_4k: train_4k's length at grad_accum 2, with remat; then one
+    # step without remat (its peak, or the OOM).
+    t_phase = time.perf_counter()
+    seq = INPUT_SHAPES["train_4k"].seq_len
+    b4k = LM_TRAIN_4K_BATCH
+    argv = ["--arch", "smollm-360m", "--steps", str(LM_TRAIN_4K_STEPS), "--seq", str(seq),
+            "--batch", str(b4k), "--grad-accum", "2", "--log-every", "1"]
+    r, wall, peak = _trained(torch, argv)
+    line = _train_line(torch, "lm_train_4k", r, wall, peak,
+                       {"argv": argv, "batch": b4k, "seq": seq, "grad_accum": 2,
+                        "batch_choice": "the largest that fits with remat after the earlier "
+                                        "phases (32 fits only in a fresh process: "
+                                        "tools/train_memory.py)", "remat": True})
+    _per_token(line, b4k * seq, card)
+    step = loop_mod.make_train_step(r.cfg, ctx, opt_mod.adamw(3e-3), r.settings)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in
+             next(batches(r.cfg, PipelineConfig(b4k, seq, seed=1, grad_accum=2))).items()}
+    line["step_peak_gb_no_remat"], line["no_remat_oom"] = \
+        _step_peak_gb(torch, step, r.state, batch, False)
+    line["card"] = card
+    del r, step, batch
+    torch.cuda.empty_cache()
+    emit(line)
+    require(line["finite"], "lm_train_4k: a non-finite metric")
+    times["lm_train_4k"] = time.perf_counter() - t_phase
+
+    # lm_train_moe: granite-moe-1b-a400m at full width and depth.
+    t_phase = time.perf_counter()
+    argv = ["--arch", "granite-moe-1b-a400m", "--steps", str(LM_TRAIN_MOE_STEPS),
+            "--batch", "4"]
+    r, wall, peak = _trained(torch, argv)
+    line = _train_line(torch, "lm_train_moe", r, wall, peak,
+                       {"argv": argv, "batch": 4, "seq": 256, "remat": True})
+    _per_token(line, 4 * 256, card)
+    line["card"] = card
+    line["aux_metrics"] = "lb_loss, z_loss and overflow_frac summed over the MoE layers"
+    del r
+    # two runs of 3 steps from seed 0: which leaves differ, if any
+    rep = [_trained(torch, argv[:2] + ["--steps", str(LM_TRAIN_REPEAT_STEPS), "--batch", "4"],
+)[0] for _ in range(2)]
+    differ = _differing((rep[0].state, rep[0].metrics), (rep[1].state, rep[1].metrics))
+    line["two_runs_bitwise"] = not differ
+    line["two_runs_differing_leaves"] = differ[:12]
+    del rep
+    emit(line)
+    require(line["finite"], "lm_train_moe: a non-finite metric (lb_loss, z_loss, overflow)")
+    require(line["ce_last5_mean"] < line["ce_first"], "lm_train_moe: ce did not fall")
+    times["lm_train_moe"] = time.perf_counter() - t_phase
+
+    # lm_train_family: every other preset at full width, one repeat.
+    t_phase = time.perf_counter()
+    for arch in LM_TRAIN_FAMILY:
+        full = get_config(arch)
+        if arch == "jamba-v0.1-52b":
+            cfg_cut = reduced_config(full)
+            cut = (f"reduced_config ({full.name}'s one repeat of {len(full.pattern)} layers "
+                   f"holds {dataclasses.replace(full, num_layers=len(full.pattern)).param_count() / 1e9:.2f}e9 parameters)")
+        else:
+            cfg_cut = dataclasses.replace(full, num_layers=len(full.pattern))
+            cut = f"{len(full.pattern)} of {full.num_layers} layers (one repeat), full width"
+        seq_f = LM_TRAIN_FAMILY_SEQ.get(arch, 256)
+        argv = ["--arch", arch, "--steps", "3", "--batch", "2", "--seq", str(seq_f)]
+        r, wall, peak = _trained(torch, argv, cfg=cfg_cut)
+        line = _train_line(torch, "lm_train_family", r, wall, peak,
+                           {"argv": argv, "cut": cut, "batch": 2, "seq": seq_f})
+        _per_token(line, 2 * seq_f, card)
+        del r
+        if line["ce_last"] > line["ce_first"]:
+            # ce rose: the same steps with a float32 compute copy, and at a
+            # tenth of the lr, tell rounding from the step's size
+            f32 = dataclasses.replace(cfg_cut, dtype="float32")
+            for key, args, c in (("ce_float32", argv, f32),
+                                 ("ce_lr_3e-4", argv + ["--lr", "3e-4"], cfg_cut)):
+                ce = [float(m["ce"]) for m in _trained(torch, args, cfg=c)[0].metrics]
+                line[key] = {"first": ce[0], "last": ce[-1]}
+        emit(line)
+        require(line["finite"], f"lm_train_family {arch}: a non-finite metric")
+    times["lm_train_family"] = time.perf_counter() - t_phase
+
+    # One train step at reduced_config on the CPU and on the card.
+    t_phase = time.perf_counter()
+    for arch in ("smollm-360m", "granite-moe-1b-a400m"):
+        cfg_r = reduced_config(get_config(arch))
+        inner = opt_mod.adamw(TRAIN_LR)
+
+        def keeping(inner=inner):
+            def init(params):
+                return {"inner": inner.init(params),
+                        "g": tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                            device=p.device), params)}
+
+            def update(grads, state, params):
+                updates, s_ = inner.update(grads, state["inner"], params)
+                return updates, {"inner": s_, "g": grads}
+            return opt_mod.Optimizer(init, update)
+
+        opt_k = keeping()
+        state = loop_mod.init_state(cfg_r, 0, opt_k, tp=1, device="cpu")
+        step = loop_mod.make_train_step(cfg_r, ctx, opt_k, loop_mod.TrainSettings())
+        b_np = next(batches(cfg_r, PipelineConfig(2, 64, seed=3)))
+        want, m_want = step(state, {k: torch.from_numpy(v) for k, v in b_np.items()})
+        got, m_got = step(tree_map(lambda t: t.cuda(), state),
+                          {k: torch.from_numpy(v).cuda() for k, v in b_np.items()})
+        got = tree_map(lambda t: t.cpu(), got)
+        metric_err = max(abs(float(m_got[k]) - float(m_want[k])) / (1.0 + abs(float(m_want[k])))
+                         for k in m_want)
+        grad_err = max(float((a_ - b_).abs().max()) / max(float(b_.abs().max()), 1e-30)
+                       for a_, b_ in zip(tree_leaves(got["opt"]["g"]),
+                                         tree_leaves(want["opt"]["g"])))
+        det_err, any_err = 0.0, 0.0
+        for a_, b_, g_ in zip(tree_leaves(got["params"]), tree_leaves(want["params"]),
+                              tree_leaves(want["opt"]["g"])):
+            err = (a_ - b_).abs()
+            big = g_.abs() >= TRAIN_DETERMINED * g_.abs().max()
+            det_err = max(det_err, float(err[big].max()) if bool(big.any()) else 0.0)
+            any_err = max(any_err, float(err.max()))
+        line = {"phase": "lm_train_cpu_vs_card", "arch": cfg_r.name, "dtype": cfg_r.dtype,
+                "batch": 2, "seq": 64, "metric_rel_err": metric_err,
+                "grad_err_over_leaf_max": grad_err, "master_err_determined": det_err,
+                "master_err_any": any_err,
+                "tolerance": f"metrics {TRAIN_METRIC_TOL:g}; gradients {TRAIN_GRAD_RTOL:g} * "
+                             f"max|leaf|; masters {TRAIN_MASTER_ATOL:g} where |g| >= "
+                             f"{TRAIN_DETERMINED:g} * max|g leaf|, {TRAIN_ADAMW_ATOL:g} anywhere "
+                             f"(tests/test_torch_train.py's, held against the reference)"}
+        emit(line)
+        require(metric_err <= TRAIN_METRIC_TOL and grad_err <= TRAIN_GRAD_RTOL
+                and det_err <= TRAIN_MASTER_ATOL and any_err <= TRAIN_ADAMW_ATOL,
+                f"lm_train_cpu_vs_card {arch}: {line}")
+    times["lm_train_cpu_vs_card"] = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+    return times
 
 
 def blockwise_prefill(torch, cfg, dev) -> None:
@@ -3701,7 +4125,19 @@ def run() -> dict:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
-    # 21. The kernels line.  Launches: sparse_margin, logistic_grad,
+    # 21. LM training: smollm-360m at full width and depth through
+    # launch.train, train_4k's length, granite-moe, every other preset at
+    # one repeat, a CPU-against-card step.
+    # No kernel of the port lies on the training path (training's attention
+    # is attention_train, plain in both packages): its launches stay 0.
+    ops.reset_launch_counts()
+    train_times = lm_train_paths(torch, card)
+    train_launches = ops.launch_counts()
+    emit({"phase": "lm_train_time", **train_times, "total_s": sum(train_times.values()),
+          "port_kernel_launches": train_launches})
+    require(not any(train_launches.values()), f"lm_train: kernel launches {train_launches}")
+
+    # 22. The kernels line.  Launches: sparse_margin, logistic_grad,
     # block_scatter and prox_update from the dense main path (sparse_margin's,
     # logistic_grad's and lazy_catchup's times at one step over all 8
     # blocks, lazy_flush's at one epoch's flush, their launches on the path), the

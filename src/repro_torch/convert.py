@@ -119,7 +119,10 @@ F32_LEAVES = ("router", "a_log", "dt_bias", "d_skip")
 
 
 def lm_params(
-    tree: dict, cfg: ModelConfig | None = None, device: torch.device | str = "cpu"
+    tree: dict,
+    cfg: ModelConfig | None = None,
+    device: torch.device | str = "cpu",
+    weight_dtype: str | None = None,
 ) -> dict:
     """The port's LM parameters from the reference's pytree of numpy arrays
     (``jax.tree.map(np.asarray, params)``), leaf for leaf: the same keys,
@@ -132,7 +135,8 @@ def lm_params(
     :data:`F32_LEAVES` in float32 and every other weight in one dtype, one
     repeat count per block, and shapes that agree with each other — and,
     given ``cfg``, with its widths (the vocabulary may be padded to a
-    multiple of 256) and its dtype.
+    multiple of 256) and its dtype, or ``weight_dtype`` where given (a
+    train state's float32 masters under a bfloat16 ``cfg``).
     """
     if not isinstance(tree, dict) or not isinstance(tree.get("blocks"), tuple):
         raise ValueError("expected the reference's params dict with a tuple of blocks")
@@ -243,6 +247,65 @@ def lm_params(
         if got != want or (tied != cfg.tie_embeddings and not audio):
             diff = {k: (got[k], want[k]) for k in want if got[k] != want[k]}
             raise ValueError(f"params do not fit {cfg.name}: (got, want) {diff}, tied {tied}")
-        if str(next(iter(weight_dtypes))).split(".")[1] != cfg.dtype:
-            raise TypeError(f"weights are {next(iter(weight_dtypes))}, {cfg.name} is {cfg.dtype}")
+        want_dtype = weight_dtype or cfg.dtype
+        if str(next(iter(weight_dtypes))).split(".")[1] != want_dtype:
+            raise TypeError(f"weights are {next(iter(weight_dtypes))}, {cfg.name} wants "
+                            f"{want_dtype}")
     return out
+
+
+def _step_count(path: str, a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.shape != () or a.dtype != np.int32:
+        raise ValueError(f"{path}: expected a 0-dim int32 count, got {a.dtype} {a.shape}")
+    return torch.tensor(int(a), dtype=torch.int32, device=device)
+
+
+def train_state(tree: dict, cfg: ModelConfig, device: torch.device | str = "cpu") -> dict:
+    """The port's train state (``repro_torch.train.loop``) from the
+    reference's (``jax.tree.map(np.asarray, state)``): ``{"params":
+    float32 masters, "opt": ..., "step": 0-dim int32}``.
+
+    The masters and every moment tree go through :func:`lm_params`' checks
+    against ``cfg`` with float32 weights whatever ``cfg.dtype``.  The
+    optimizer state is told by its keys: adamw's ``{"m", "v", "t"}``,
+    momentum's ``{"m"}``, sgd's ``()``.  A wrong structure, shape or
+    optimizer kind raises ``ValueError``.
+    """
+    if not isinstance(tree, dict) or set(tree) != {"params", "opt", "step"}:
+        raise ValueError("expected the reference's train state {'params', 'opt', 'step'}")
+    params = lm_params(tree["params"], cfg, device, weight_dtype="float32")
+    opt = tree["opt"]
+    kinds = {("m", "t", "v"): "adamw", ("m",): "momentum"}
+    if isinstance(opt, tuple) and not opt:
+        kind = "sgd"
+    elif isinstance(opt, dict) and tuple(sorted(opt)) in kinds:
+        kind = kinds[tuple(sorted(opt))]
+    else:
+        keys = sorted(opt) if isinstance(opt, dict) else type(opt).__name__
+        raise ValueError(f"opt: not an adamw, momentum or sgd state ({keys})")
+    new_opt: dict | tuple = ()
+    if kind != "sgd":
+        new_opt = {}
+        for k in ("m", "v"):
+            if k not in opt:
+                continue
+            got, want = _leaf_paths(opt[k]), _leaf_paths(tree["params"])
+            if [p for p, _ in got] != [p for p, _ in want]:
+                raise ValueError(f"opt.{k}: not the masters' structure")
+            for (path, a), (_, b) in zip(got, want):
+                if np.shape(a) != np.shape(b):
+                    raise ValueError(f"opt.{k}{path}: shape {np.shape(a)}, the masters' "
+                                     f"{np.shape(b)}")
+            new_opt[k] = lm_params(opt[k], cfg, device, weight_dtype="float32")
+        if kind == "adamw":
+            new_opt["t"] = _step_count("opt.t", opt["t"], device)
+    return {"params": params, "opt": new_opt, "step": _step_count("step", tree["step"], device)}
+
+
+def _leaf_paths(tree, prefix: str = "") -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaf_paths(tree[k], f"{prefix}.{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree) for x in _leaf_paths(v, f"{prefix}[{i}]")]
+    return [(prefix, tree)]

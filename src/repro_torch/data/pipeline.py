@@ -22,6 +22,10 @@ worker's slab without the global padded arrays:
 * :func:`streamed_margins` — ``w^T x_i`` for every row, a chunk at a
   time, on the card through the margin kernel (kernel 1, the one-block
   launch over the chunk's global ids against the whole ``w``).
+
+The LM token pipeline's old names here (``PipelineConfig``, ``batches``,
+``_token_stream``) forward to :mod:`repro_torch.data.token_stream` with
+a ``DeprecationWarning``, as the reference's shim does.
 """
 
 from __future__ import annotations
@@ -561,3 +565,26 @@ def source_labels(
     return (
         np.concatenate(parts) if parts else np.zeros((0,), dtype=np.float32)
     )
+
+
+# ---------------------------------------------------------------------------
+# Deprecation shim: the LM token pipeline lives in repro_torch.data.token_stream
+# ---------------------------------------------------------------------------
+
+_TOKEN_STREAM_NAMES = ("PipelineConfig", "batches", "_token_stream")
+
+
+def __getattr__(name: str):
+    if name in _TOKEN_STREAM_NAMES:
+        import warnings
+
+        warnings.warn(
+            f"repro_torch.data.pipeline.{name} moved to repro_torch.data.token_stream; "
+            "this alias will be removed",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        from repro_torch.data import token_stream
+
+        return getattr(token_stream, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

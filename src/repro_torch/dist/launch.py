@@ -51,8 +51,11 @@ def _rank_main(rank: int, q: int, fn: Callable, args: tuple, backend: str, devic
             torch.cuda.set_device(dev)
             torch.zeros(1, device=dev)  # the context, before the mesh looks at the device
         store = dist.FileStore(os.path.join(workdir, "store"), q)
+        # A CUDA rank names its card, so the group binds to it (NCCL would
+        # otherwise guess the card from the rank at its first barrier).
+        bound = {"device_id": dev} if dev.type == "cuda" else {}
         dist.init_process_group(backend, store=store, rank=rank, world_size=q,
-                                timeout=datetime.timedelta(seconds=timeout_s))
+                                timeout=datetime.timedelta(seconds=timeout_s), **bound)
         try:
             mesh = DeviceMesh(dev.type, list(range(q)), mesh_dim_names=("model",))
             out = fn(mesh, *args)
@@ -90,6 +93,8 @@ def spawn_ranks(
     on card r modulo the host's cards, ``cuda:k`` every rank on card k,
     ``cpu`` every rank on the CPU.  The store and the result go to
     ``workdir`` (default: a fresh temporary directory, removed after).
+    NCCL ranks that would share a device raise ``ValueError`` before any
+    rank starts.
     When a rank fails the others get a few seconds to fail too, then every
     rank left is killed and :class:`RankError` carries each failed rank's
     traceback; after ``timeout_s`` seconds every rank is killed and it
@@ -102,6 +107,15 @@ def spawn_ranks(
     if backend not in ("gloo", "nccl"):
         raise ValueError(f"backend must be 'gloo' or 'nccl', got {backend!r}")
     device = str(resolve_device(device))
+    if backend == "nccl":
+        # A CUDA rank binds its group to its card at init, where NCCL
+        # refuses a card that two ranks share: refuse before starting any.
+        cards = [_rank_device(device, r) for r in range(q)]
+        shared = next(((cards.index(c), r) for r, c in enumerate(cards)
+                       if cards.index(c) != r), None)
+        if shared is not None:
+            raise ValueError(f"NCCL runs one rank per device, but ranks {shared[0]} and "
+                             f"{shared[1]} would share {cards[shared[1]]}")
     if torch.device(device).type == "cuda":
         from repro_torch.kernels import _build
 

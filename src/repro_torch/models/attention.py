@@ -126,7 +126,11 @@ def _attend(q_blk, qpos, chunks, cfg: AttnConfig, ctx, scale) -> torch.Tensor:
         scores = ctx.constrain(
             scores.masked_fill_(~causal, _MASK_VALUE), "batch", "heads", None, None
         )
-        m_new = torch.maximum(m, scores.amax(dim=-1, keepdim=True))
+        # The running max only shifts the exponents (the result does not
+        # depend on it), so no gradient flows through it, as in flash
+        # attention; read off a detached alias, no autograd node keeps
+        # ``scores``, which the next line overwrites.
+        m_new = torch.maximum(m, scores.detach().amax(dim=-1, keepdim=True))
         alpha = torch.exp(m - m_new)
         p = scores.sub_(m_new).exp_()  # exp(scores - m_new), in place
         l = l * alpha + p.sum(dim=-1, keepdim=True)

@@ -19,7 +19,10 @@ position ``start_e + c`` when ``c`` is below expert e's count (else the
 zero pad row, weight 0), and each token sums its k kept contributions in
 its top-k order (a dropped pair is masked to 0).  Two runs on the card
 repeat bit for bit.  The reference's scatter-add sums a token's terms in
-slot order instead, so the two agree to rounding, not bit for bit.
+slot order instead, so the two agree to rounding, not bit for bit.  In
+a training step the gathers' backward is ``scatter_add_``, whose atomics
+add in a varying order on the card, so MoE gradients do not repeat bit
+for bit there.
 
 Without a mesh there is one dispatch group (``_num_groups``); the group
 axis stays, written out as a batch dimension where the reference vmaps.
@@ -78,8 +81,10 @@ def _act(h: torch.Tensor, act: str) -> torch.Tensor:
 
 def _route(xt: torch.Tensor, router: torch.Tensor, k: int):
     """xt [..., T, D] -> float32 logits, probs [..., T, E] and the top-k
-    (renormalized weights, expert ids) [..., T, k]."""
-    logits = torch.einsum("...td,de->...te", xt.float(), router)
+    (renormalized weights, expert ids) [..., T, k].  The router is float32;
+    a training step's compute copy may hold it in bfloat16, which the
+    reference's einsum promotes to float32, as here."""
+    logits = torch.einsum("...td,de->...te", xt.float(), router.float())
     probs = torch.softmax(logits, dim=-1)
     top_w, top_e = torch.topk(probs, k, dim=-1)
     top_w = top_w / torch.clamp_min(top_w.sum(dim=-1, keepdim=True), 1e-9)

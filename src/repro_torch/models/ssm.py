@@ -94,6 +94,13 @@ def _segsum(x: torch.Tensor) -> torch.Tensor:
     return seg.masked_fill(~mask, float("-inf"))
 
 
+def _mul_unless_recorded(t: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """``t * s``: in place when autograd does not record ``t`` (serving),
+    out of place when it does (``exp`` saved ``t`` for its backward in
+    float32, where ``op`` returns its argument).  The same numbers either way."""
+    return t * s if t.requires_grad else t.mul_(s)
+
+
 def ssd_chunked(
     x: torch.Tensor,  # [B, S, H, P]
     dt: torch.Tensor,  # [B, S, H] (post-softplus)
@@ -137,7 +144,7 @@ def ssd_chunked(
     # 1) intra-chunk: y_diag[b,c,l,h,p] = sum_s (C_l . B_s) exp(segsum)[h,l,s] x[s,h,p]
     lmat = op(torch.exp(_segsum(la_c)))  # [B, H, C, L, L]
     cb = torch.einsum("bcln,bcsn->bcls", c_c, b_c)  # [B, C, L, L]
-    lmat.mul_(cb[:, None])
+    lmat = _mul_unless_recorded(lmat, cb[:, None])
     y_diag = torch.einsum("bhcls,bcshp->bclhp", lmat, x_c)
     del lmat, cb
 
@@ -158,7 +165,7 @@ def ssd_chunked(
     # 4) inter-chunk output: y_off[b,c,l,h,p] = (C_l . h_prev[h,p,:]) exp(la_cum[h,l])
     state_decay_out = op(torch.exp(la_cum))  # [B, H, C, L]
     y_off = torch.einsum("bcln,bchpn->bclhp", c_c, op(h_prevs))
-    y_off.mul_(state_decay_out.permute(0, 2, 3, 1)[..., None])
+    y_off = _mul_unless_recorded(y_off, state_decay_out.permute(0, 2, 3, 1)[..., None])
 
     y = (y_diag + y_off).reshape(b, s, h, p)
     return y[:, :s0] if pad else y

@@ -18,8 +18,12 @@ D]``) and emits K logit heads (``lm_head [K, D, V]``).  The reference
 drives the stack with ``lax.scan`` (``models/unroll.py`` picks its
 unroll); here a Python loop
 over the repeats replaces the scan, so ``unroll.py`` has no counterpart.
-Parameters are plain tensors in dicts, never ``nn.Parameter``s, so no
-autograd graph is built.
+Parameters are plain tensors in dicts, never ``nn.Parameter``s: serving
+builds no autograd graph.  A training step (``repro_torch.train.loop``)
+asks for gradients of a compute copy of the parameters; ``forward`` then
+rematerialises each repeat of the pattern in the backward pass
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of its
+scan body), so only each repeat's input stays alive between the passes.
 
 Three execution modes share the layer code:
   * ``forward``     — logits over all positions
@@ -371,15 +375,54 @@ def _apply_block_decode(
 # ---------------------------------------------------------------------------
 
 
+def _unstack(tree, r: int) -> list:
+    """The ``r`` repeats of a stacked dict, each leaf ``unbind``-ed once:
+    the same views as ``_at``, and in a backward pass one ``stack`` of the
+    repeats' gradients per leaf."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, r) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(r)]
+    return list(torch.unbind(tree, 0))
+
+
+def _remat(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward pass
+    instead of kept."""
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                             preserve_rng_state=False)
+
+
+def _records(x: torch.Tensor, blocks) -> bool:
+    """Does autograd record this forward pass?"""
+    if not torch.is_grad_enabled():
+        return False
+    return x.requires_grad or any(
+        t.requires_grad for p in blocks for t in _leaves(p))
+
+
+def _leaves(tree: dict) -> list:
+    return [t for v in tree.values() for t in (_leaves(v) if isinstance(v, dict) else [v])]
+
+
 def forward(params, cfg: ModelConfig, batch: dict, ctx: ShardingCtx):
-    """-> (logits, aux).  aux carries the (zero) MoE losses and the loss mask."""
+    """-> (logits, aux).  aux carries the MoE losses and the loss mask.
+    While autograd records, each repeat of the pattern goes through
+    :func:`_remat`."""
     x, positions, loss_mask = embed_inputs(params, cfg, batch, ctx)
     aux = {k: torch.zeros((), dtype=torch.float32, device=x.device) for k in _ZERO_AUX}
-    for r in range(cfg.num_repeats):
+    repeats = [_unstack(p, cfg.num_repeats) for p in params["blocks"]]
+
+    def body(x, aux, block_params):
         x = ctx.constrain(x, "batch", "seq", "embed")
-        for tmpl, p in zip(cfg.pattern, params["blocks"]):
-            x, block_aux, _ = _apply_block_train(tmpl, _at(p, r), x, positions, cfg, ctx, False)
+        for tmpl, p in zip(cfg.pattern, block_params):
+            x, block_aux, _ = _apply_block_train(tmpl, p, x, positions, cfg, ctx, False)
             aux = {k: aux[k] + block_aux[k] for k in aux}
+        return x, aux
+
+    remat = _records(x, params["blocks"])
+    for r in range(cfg.num_repeats):
+        block_params = tuple(rep[r] for rep in repeats)
+        x, aux = _remat(body, x, aux, block_params) if remat else body(x, aux, block_params)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = output_logits(params, cfg, x, ctx)
     aux["loss_mask"] = loss_mask

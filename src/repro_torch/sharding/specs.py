@@ -3,9 +3,9 @@
 Port of the part of ``repro.sharding.specs`` that the model code calls:
 :meth:`ShardingCtx.constrain` (here the identity) and
 :func:`unsharded_ctx`.  The mesh rules (``make_ctx``, ``param_specs``,
-``cache_specs``) wait in ROADMAP queue 1, after training and the launch
-tools; the model code already names its logical axes, so they slot in
-there.
+``cache_specs``, and the train state's ``state_specs``) are next in
+ROADMAP queue 1; the model code already names its logical axes, so they
+slot in there.
 """
 
 from __future__ import annotations

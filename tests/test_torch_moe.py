@@ -9,7 +9,9 @@ tolerances:
   (the reference's own sort-vs-oracle tolerance); under overflow within
   the same of the reference's ``moe_ffn``, with the same dropped pairs
   (``overflow_frac`` equal);
-* the aux losses within ``1e-5`` (rtol and atol).
+* the aux losses within ``1e-5`` (rtol and atol);
+* a bfloat16 compute copy (router included) within ``BF16_RTOL`` of the
+  reference's, its aux losses within ``1e-5``.
 
 The port gathers where the reference scatters, so a token's k terms are
 summed in top-k order, not slot order, and two runs repeat bit for bit.
@@ -32,6 +34,7 @@ R_CTX = r_unsharded_ctx()
 CTX = unsharded_ctx()
 RTOL, ATOL = 5e-4, 5e-5
 AUX_TOL = 1e-5
+BF16_RTOL = 2 ** -7  # two bfloat16 roundings
 WORST: dict[str, float] = {}
 
 
@@ -99,6 +102,27 @@ def test_capacity_overflow_drops_the_reference_pairs(cf, b, s):
     assert 0.0 < float(aux["overflow_frac"]) < 1.0
     assert float(aux["overflow_frac"]) == pytest.approx(float(r_aux["overflow_frac"]), abs=1e-7)
     _close("moe_ffn overflow vs reference", y, ry, RTOL, ATOL)
+
+
+@pytest.mark.parametrize("e,k", [(4, 2), (8, 2)], ids=["e4k2", "e8k2"])
+def test_bfloat16_compute_copy_routes_in_float32(e, k):
+    """A train step's bfloat16 compute copy casts every weight, the router
+    too; the reference's routing einsum promotes a bfloat16 router against
+    its float32 input, so both route on float32 logits of the same
+    bfloat16 values: the aux losses within ``AUX_TOL``, the output within
+    the bfloat16 rounding of the expert matmuls (``BF16_RTOL``)."""
+    r_cfg, t_cfg, params, t_params, x = _setup(e, k, float(e))
+    params = {n: a.astype(jnp.bfloat16) for n, a in params.items()}
+    t_params = {n: a.to(torch.bfloat16) for n, a in t_params.items()}
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    y, aux = t_moe.moe_ffn(t_params, xb, t_cfg, CTX)
+    ry, r_aux = jax.jit(lambda p, x: r_moe.moe_ffn(p, x, r_cfg, R_CTX))(
+        params, jnp.asarray(x).astype(jnp.bfloat16))
+    assert y.dtype == torch.bfloat16
+    _close("bfloat16 moe_ffn vs reference", y, np.asarray(ry.astype(jnp.float32)),
+           BF16_RTOL, BF16_RTOL)
+    for key in ("lb_loss", "z_loss"):
+        _close(f"bfloat16 aux {key}", aux[key], r_aux[key], AUX_TOL, AUX_TOL)
 
 
 def test_zero_gate_gives_zero_and_uniform_router_gives_lb_e():

@@ -356,6 +356,49 @@ def test_spawn_ranks_runs_on_the_card_unless_asked(monkeypatch):
         spawn_ranks(2, _rank_sleeps)
 
 
+@pytest.mark.parametrize("backend, device, bound", [
+    ("nccl", "cuda:0", torch.device("cuda", 0)),
+    ("gloo", "cuda:1", torch.device("cuda", 1)),
+    ("gloo", "cpu", None),
+])
+def test_a_cuda_rank_binds_its_group_to_its_card(monkeypatch, tmp_path, backend, device, bound):
+    """A rank on a card passes ``device_id`` (that card) to
+    ``init_process_group``, so NCCL does not guess the card from the rank;
+    a CPU rank passes none.  The call is intercepted, on the CPU."""
+    from repro_torch.dist import launch
+
+    class Joined(Exception):
+        pass
+
+    seen = {}
+
+    def init_process_group(backend_, **kw):
+        seen.update(kw, backend=backend_)
+        raise Joined
+
+    zeros = torch.zeros
+    monkeypatch.setattr(torch.distributed, "init_process_group", init_process_group)
+    monkeypatch.setattr(torch.cuda, "set_device", lambda dev: seen.update(set_device=dev))
+    monkeypatch.setattr(torch, "zeros", lambda *a, device=None, **kw: zeros(*a, **kw))
+    with pytest.raises(Joined):
+        launch._rank_main(0, 1, _rank_sleeps, (), backend, device, str(tmp_path), 5.0)
+    assert seen["backend"] == backend and seen["rank"] == 0 and seen["world_size"] == 1
+    assert seen.get("device_id") == bound
+    assert seen.get("set_device") == bound
+
+
+@pytest.mark.parametrize("q, device", [(2, "cuda:0"), (3, "cuda"), (2, "cpu")])
+def test_nccl_ranks_sharing_a_device_are_refused_before_they_start(monkeypatch, tmp_path, q,
+                                                                   device):
+    """Two NCCL ranks on one device (``cuda:k`` for all, or more ranks than
+    the host's 2 cards) raise before any rank is started."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(ValueError, match="NCCL runs one rank per device, but ranks 0 and"):
+        spawn_ranks(q, _rank_sleeps, backend="nccl", device=device, workdir=str(tmp_path))
+    assert not any(tmp_path.iterdir())
+
+
 @pytest.fixture(scope="module")
 def spawned(tmp_path_factory):
     _, t_data = _data()

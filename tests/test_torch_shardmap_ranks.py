@@ -31,7 +31,7 @@ from repro_torch.data.block_csr import BlockCSR
 from repro_torch.data.synthetic import make_sparse_classification as t_make
 from repro_torch.dist import ShardMapBackend, tree_order_sum
 from repro_torch.dist import shardmap as t_shardmap
-from repro_torch.dist.launch import RankError, spawn_ranks
+from repro_torch.dist.launch import spawn_ranks
 from repro_torch.dist.tree import collective_permute_tree
 from repro_torch.kernels import ops
 
@@ -252,10 +252,13 @@ def test_one_rank_nccl_group_on_card(cuda_device, tmp_path):
 
 @pytest.mark.cuda
 def test_nccl_refuses_two_ranks_on_one_card(cuda_device, tmp_path):
+    """Refused before any rank starts (a rank binds its group to its card
+    at init, where NCCL itself refuses a shared card)."""
     t_data = t_make(**DATA)
-    with pytest.raises(RankError, match="NCCL runs one rank per device"):
+    with pytest.raises(ValueError, match="NCCL runs one rank per device"):
         spawn_ranks(2, _rank_nccl, t_data, backend="nccl", device="cuda:0",
                     timeout_s=SPAWN_S, workdir=str(tmp_path))
+    assert not any(tmp_path.iterdir())
 
 
 @pytest.mark.cuda
