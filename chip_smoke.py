@@ -120,6 +120,18 @@ other preset at full width cut to one repeat of its pattern (jamba at
 again with a float32 compute copy and at a tenth of the lr), and one step at
 ``reduced_config`` on the CPU and on the card within the CPU tests'
 tolerances (``lm_train_cpu_vs_card``).
+Then the mesh rules (``mesh_rules``): one NCCL rank on a (data=1,
+model=1) ``DeviceMesh`` trains smollm-360m at full width and depth for 3
+steps with the state laid out by ``state_specs``, bitwise the same steps
+without a mesh, and decodes 16 tokens at B = 4 over a 512-token prompt
+with the cache laid out by ``cache_specs``: the no-mesh tokens and 512
+``flash_decode`` launches, s/step and ms/token beside the no-mesh
+figures.  Then the dry-run (``dryrun``), started on the host at the
+beginning (no card visible, under ``nice``) and collected here:
+``repro_torch.launch.dryrun --smoke`` (reduced smollm-360m, a fake 2 x 4
+mesh), smollm-360m x ``train_4k`` and the FD-SVRG outer on a fake 16 x 16
+mesh, each combo's FLOPs and bytes per device, collectives, implicit
+redistributes, peak per device and roofline terms against the H100.
 Each phase prints one JSON line; the last line is the result object
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 without printing it, as does a machine without a CUDA device or a
@@ -2225,6 +2237,317 @@ def blockwise_prefill(torch, cfg, dev) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Slice 15: the mesh rules on the card and the dry-run on the host
+# ---------------------------------------------------------------------------
+
+MESH_ARCH = "smollm-360m"
+MESH_TRAIN_STEPS = 3
+MESH_TRAIN_SHAPE = (8, 256)  # batch x positions a step
+MESH_DECODE = (4, 512, 16)  # batch, prompt, generated tokens
+MESH_LIMIT_S = 600.0  # the mesh_rules phase's own time limit
+# One rank's mesh step is held bitwise against the no-mesh step: DTensor
+# over a one-rank mesh runs the same local ops (on an H100 with torch 2.11:
+# metrics and masters bitwise; a CPU build of torch 2.13 differs in the
+# gradients' last bits).  Four cards' steps (tools/mesh_check.py --cards 4)
+# split the reductions and are held to bounds there.
+MESH_MASTER_ANY = 2 * MESH_TRAIN_STEPS * 1e-3  # any master: one sign flip a step (2 lr)
+MESH_MASTER_ATOL = 1e-4  # the bound whose exceedances _mesh_compare counts by default
+DRYRUN_LIMIT_S = 900.0
+DRYRUN_JOBS = (("smoke", ["--smoke"]),
+               ("smollm-360m train_4k 16x16", ["--arch", "smollm-360m", "--shape", "train_4k"]),
+               ("fdsvrg 16x16", ["--fdsvrg"]))
+
+
+def _mesh_rank(mesh, s: dict) -> dict:
+    """One rank of a (data, model) mesh: ``MESH_TRAIN_STEPS`` train steps
+    of ``s["arch"]`` at full width and depth from seed 0 without a mesh and
+    then on ``mesh`` (the state laid out by ``state_specs``), then, where
+    ``s["decode"]``, a greedy decode at ``MESH_DECODE`` without a mesh and
+    on the mesh (the cache laid out by ``cache_specs``), each run's
+    ``flash_decode`` launches counted.  Rank 0 returns both runs' metrics,
+    masters, tokens and times; every rank checks that its masters, ``m``
+    and ``v`` are its ``state_specs`` slice.  ``s["dtype"]``, where given,
+    replaces the preset's compute dtype."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.token_stream import PipelineConfig, batches
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.optim import optimizers as opt_mod
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+    from repro_torch.sharding.specs import (
+        distribute,
+        local_offset,
+        spec_leaves,
+        spec_placements,
+        unsharded_ctx,
+    )
+    from repro_torch.train import loop as loop_mod
+    from repro_torch.train.serve import make_serve_step
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = get_config(s["arch"])
+    if s.get("dtype"):  # the compute copy's dtype, where not the preset's
+        cfg = dataclasses.replace(cfg, dtype=s["dtype"])
+    mctx = transformer.make_ctx(mesh, cfg)
+    out = {"rank": dist.get_rank(), "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape))}
+
+    def sync_s(t0):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def layout(ctx, x, *names):
+        return distribute_tensor(x, mesh, spec_placements(mesh, ctx.spec(*names)))
+
+    # training, without a mesh and then on it, from the same state
+    opt = opt_mod.adamw(s["lr"])
+    b, seq = MESH_TRAIN_SHAPE
+    it = batches(cfg, PipelineConfig(b, seq, seed=1))
+    data = [{k: torch.from_numpy(v).to(dev) for k, v in next(it).items()}
+            for _ in range(MESH_TRAIN_STEPS)]
+    runs = {}
+    for tag, ctx in (("no_mesh", unsharded_ctx()), ("mesh", mctx)):
+        state = loop_mod.init_state(cfg, 0, opt, device=dev)
+        if ctx.mesh is not None:
+            specs = loop_mod.state_specs(state, cfg, ctx)
+            state = distribute(state, specs, mesh)
+        step = loop_mod.make_train_step(cfg, ctx, opt, loop_mod.TrainSettings())
+        torch.cuda.reset_peak_memory_stats()
+        metrics, walls = [], []
+        for batch in data:
+            if ctx.mesh is not None:
+                batch = {k: layout(ctx, v, "batch", None) for k, v in batch.items()}
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            walls.append(sync_s(t0))
+            metrics.append({k: float(v) for k, v in m.items()})
+        run = {"metrics": metrics, "step_s": walls,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if ctx.mesh is not None:
+            checked = 0
+            for x, spec in zip(tree_leaves(state), spec_leaves(specs)):
+                want = spec_placements(mesh, spec)
+                full = x.full_tensor()
+                shape, off = local_offset(full.shape, mesh, want)
+                piece = full[tuple(slice(o, o + n) for o, n in zip(off, shape))]
+                if tuple(x.placements) != want or not torch.equal(x.to_local(), piece):
+                    raise AssertionError(f"rank {dist.get_rank()}: a leaf is not its "
+                                         f"state_specs slice ({spec})")
+                checked += 1
+            run["leaves_checked"] = checked
+            params = tree_map(lambda p: p.full_tensor(), state["params"])
+        else:
+            params = state["params"]
+        run["params"] = tree_map(lambda p: p.cpu(), params) if out["rank"] == 0 else None
+        runs[tag] = run
+        del state, params
+        torch.cuda.empty_cache()
+    out["train"] = runs
+
+    if s["decode"]:
+        bsz, prompt_len, gen = MESH_DECODE
+        params = transformer.init_params(cfg, 0, dev)
+        gen_ = torch.Generator(device="cpu").manual_seed(2)
+        prompt = torch.randint(0, cfg.vocab_size, (bsz, prompt_len), generator=gen_,
+                               dtype=torch.int32).to(dev)
+        dec = {}
+        for tag, ctx in (("no_mesh", unsharded_ctx()), ("mesh", mctx)):
+            p, tok = params, prompt
+            if ctx.mesh is not None:
+                p = distribute(params, transformer.param_specs(params, cfg, ctx, zero1=False),
+                               mesh)
+                tok = layout(ctx, prompt, "batch", None)
+            serve_step = make_serve_step(cfg, ctx, use_kernels=True)
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            _, cache = transformer.prefill(p, cfg, {"tokens": tok}, prompt_len + gen, ctx)
+            prefill_s = sync_s(t0)
+            cur, tokens = tok[:, -1:], []
+            t0 = time.perf_counter()
+            for i in range(gen):
+                cur, _, cache = serve_step(p, cache, cur, prompt_len + i - 1)
+                tokens.append(cur)
+            decode_s = sync_s(t0)
+            got = torch.cat(tokens, dim=1)
+            if ctx.mesh is not None:
+                got = got.full_tensor()
+            dec[tag] = {"tokens": got.cpu(), "prefill_s": prefill_s,
+                        "ms_per_token": 1e3 * decode_s / gen,
+                        "flash_decode": ops.launch_counts()["flash_decode"]}
+            del cache, p
+        out["decode"] = dec
+    return out
+
+
+def _mesh_compare(torch, runs: dict, atol: float = MESH_MASTER_ATOL) -> dict:
+    """The mesh run's metrics and masters against the no-mesh run's (the
+    share of each leaf's entries past ``atol``)."""
+    from repro_torch.optim.optimizers import tree_leaves
+
+    a, b = runs["mesh"], runs["no_mesh"]
+    metric = max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-30)
+                 for x, y in zip(a["metrics"], b["metrics"]) for k in y)
+    any_err, loose, bitwise = 0.0, 0.0, True
+    for x, y in zip(tree_leaves(a["params"]), tree_leaves(b["params"])):
+        bitwise &= bool(torch.equal(x, y))
+        err = (x.double() - y.double()).abs()
+        any_err = max(any_err, float(err.max()))
+        loose = max(loose, float((err > atol).double().mean()))
+    return {"bitwise": bitwise, "metric_rel_max": metric, "master_abs_max": any_err,
+            "master_loose_share_max": loose}
+
+
+def mesh_rules(torch, card: str) -> dict:
+    """The mesh rules on the card (slice 15): one NCCL rank on a (data=1,
+    model=1) mesh (``spawn_ranks``, bound to card 0), smollm-360m at full
+    width and depth: ``MESH_TRAIN_STEPS`` train steps at ``MESH_TRAIN_SHAPE``
+    with ``make_ctx(mesh, cfg)`` and the state laid out by ``state_specs``,
+    bitwise the same steps without a mesh, then a greedy decode at
+    ``MESH_DECODE`` with the cache laid out by ``cache_specs``: the same
+    tokens as without a mesh and the same ``flash_decode`` launches (one a
+    layer and token).  Returns its line."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.launch import RankError, spawn_ranks
+    from repro_torch.optim.optimizers import tree_leaves
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    try:
+        out = spawn_ranks(1, _mesh_rank, {"arch": MESH_ARCH, "lr": TRAIN_LR, "decode": True},
+                          backend="nccl", device="cuda:0", timeout_s=MESH_LIMIT_S,
+                          mesh_shape=(1, 1), mesh_dim_names=("data", "model"))
+    except RankError as err:
+        print(f"mesh_rules: the rank failed; its traceback's tail:\n{str(err)[-4000:]}",
+              file=sys.stderr, flush=True)
+        raise SmokeFailure("mesh_rules: the NCCL rank failed") from err
+    runs, dec = out["train"], out["decode"]
+    cmp = _mesh_compare(torch, runs)
+    cfg = get_config(MESH_ARCH)
+    want = MESH_DECODE[2] * cfg.num_repeats * sum(
+        1 for t in cfg.pattern if t.mixer in ("global", "local"))
+    line = {"phase": "mesh_rules", "arch": MESH_ARCH, "mesh": out["mesh"], "backend": "nccl",
+            "train_steps": MESH_TRAIN_STEPS, "batch": MESH_TRAIN_SHAPE[0],
+            "seq": MESH_TRAIN_SHAPE[1], "lr": TRAIN_LR, **cmp,
+            "leaves_checked": runs["mesh"]["leaves_checked"],
+            "metrics": {tag: {k: [m[k] for m in r["metrics"]] for k in r["metrics"][0]}
+                        for tag, r in runs.items()},
+            "s_per_step": {tag: r["step_s"] for tag, r in runs.items()},
+            "peak_gb": {tag: r["peak_gb"] for tag, r in runs.items()},
+            "decode": {"batch": MESH_DECODE[0], "prompt": MESH_DECODE[1],
+                       "tokens": MESH_DECODE[2],
+                       "tokens_equal": bool(torch.equal(dec["mesh"]["tokens"],
+                                                        dec["no_mesh"]["tokens"])),
+                       "flash_decode": {tag: d["flash_decode"] for tag, d in dec.items()},
+                       "want_launches": want,
+                       "ms_per_token": {tag: d["ms_per_token"] for tag, d in dec.items()},
+                       "prefill_s": {tag: d["prefill_s"] for tag, d in dec.items()}},
+            "wall_s": time.perf_counter() - t_phase, "card": card}
+    emit(line)
+    finite = all(math.isfinite(v) for r in runs.values() for m in r["metrics"] for v in m.values())
+    require(finite, "mesh_rules: a non-finite metric")
+    require(cmp["bitwise"], f"mesh_rules: the mesh's train step is not the no-mesh step: {cmp}")
+    require(runs["mesh"]["leaves_checked"] == len(tree_leaves(runs["no_mesh"]["params"])) * 3 + 2,
+            f"mesh_rules: {runs['mesh']['leaves_checked']} leaves checked")
+    require(line["decode"]["tokens_equal"], "mesh_rules: the mesh's tokens differ")
+    require(all(d["flash_decode"] == want for d in dec.values()),
+            f"mesh_rules: flash_decode launches {line['decode']['flash_decode']}, want {want}")
+    return line
+
+
+def dryrun_start(out_dir: str):
+    """Start the dry-run jobs (``DRYRUN_JOBS``) one after another in a
+    thread, each a host subprocess with no card visible, under ``nice``;
+    :func:`dryrun_collect` waits for them.  At exit a job still running is
+    killed and ``out_dir`` removed."""
+    import atexit
+    import shutil
+    import threading
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    nice = ["nice", "-n", "10"] if shutil.which("nice") else []
+    done: dict = {}
+    live: list = []
+
+    def work():
+        for tag, argv in DRYRUN_JOBS:
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(
+                nice + [sys.executable, "-m", "repro_torch.launch.dryrun", *argv,
+                        "--out-dir", out_dir],
+                env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            live.append(proc)
+            try:
+                stdout, stderr = proc.communicate(timeout=DRYRUN_LIMIT_S)
+                done[tag] = (proc.returncode, stdout[-2000:] + stderr[-3000:],
+                             time.perf_counter() - t0)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.communicate()
+                done[tag] = (None, f"timed out after {DRYRUN_LIMIT_S:g} s",
+                             time.perf_counter() - t0)
+
+    def stop():
+        for proc in live:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+    atexit.register(stop)
+    thread = threading.Thread(target=work, daemon=True)
+    thread.start()
+    return thread, done, out_dir
+
+
+def dryrun_collect(handle) -> list:
+    """Wait for the dry-run jobs and emit one line a combo: FLOPs and
+    bytes per device, collective bytes by kind, the implicit
+    redistributes, peak memory per device, the three roofline terms
+    against the H100 and ``ok``.  Fails the smoke where a job or a combo
+    failed, or where smollm-360m's FLOPs are not per device."""
+    thread, done, out_dir = handle
+    thread.join(DRYRUN_LIMIT_S * len(DRYRUN_JOBS))
+    require(not thread.is_alive(), "dryrun: the jobs did not finish")
+    emit({"phase": "dryrun", "jobs": {tag: {"rc": done[tag][0], "wall_s": done[tag][2]}
+                                      for tag, _ in DRYRUN_JOBS}})
+    for tag, _ in DRYRUN_JOBS:
+        if done[tag][0] != 0:
+            print(f"dryrun {tag}: exit code {done[tag][0]}\n{done[tag][1]}", file=sys.stderr,
+                  flush=True)
+        require(done[tag][0] == 0, f"dryrun: {tag} exited {done[tag][0]}")
+    lines = []
+    for name in sorted(os.listdir(out_dir)):
+        with open(os.path.join(out_dir, name)) as f:
+            res = json.load(f)
+        line = {"phase": "dryrun", "combo": f"{res['arch']} {res['shape']} {res['mesh']}",
+                "ok": res.get("ok", False)}
+        if res.get("ok"):
+            line.update({k: res[k] for k in (
+                "chips", "kernels", "flops_per_device", "bytes_per_device", "collectives",
+                "implicit_redistributes", "peak_bytes_per_device", "trace_s")})
+            line["roofline"] = {k: res["roofline"][k] for k in
+                                ("compute_s", "memory_s", "collective_s", "dominant")}
+            line.update({k: res[k] for k in ("depth", "model_flops", "useful_flops_ratio",
+                                             "peak_vs_h100_hbm") if k in res})
+        else:
+            line["error"] = res.get("error")
+        emit(line)
+        lines.append(line)
+        require(line["ok"], f"dryrun: {line['combo']} failed: {line.get('error')}")
+    big = [ln for ln in lines if ln["combo"].startswith("smollm-360m train_4k")]
+    require(len(lines) == len(DRYRUN_JOBS) and len(big) == 1, f"dryrun: {len(lines)} results")
+    require(big[0]["flops_per_device"] < big[0]["model_flops"],
+            "dryrun: smollm-360m's FLOPs are not per device")
+    return lines
+
+
 def run() -> dict:
     import torch
 
@@ -2279,6 +2602,11 @@ def run() -> dict:
     name, power_limit = (s.strip() for s in card.split(",", 1))
     emit({"phase": "card", "name": name, "power_limit": power_limit,
           "torch": torch.__version__, "cuda": torch.version.cuda})
+    # The dry-run (slice 15) traces on the host, beside the card's phases.
+    import tempfile
+
+    dryrun_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    dryrun = dryrun_start(dryrun_dir)
 
     # 2. The build.
     t0 = time.perf_counter()
@@ -4137,7 +4465,13 @@ def run() -> dict:
           "port_kernel_launches": train_launches})
     require(not any(train_launches.values()), f"lm_train: kernel launches {train_launches}")
 
-    # 22. The kernels line.  Launches: sparse_margin, logistic_grad,
+    # 22. The mesh rules: one NCCL rank on a (data=1, model=1) mesh, the
+    # train step and the decode against the no-mesh runs; then the
+    # dry-run's combos, traced on the host since the card line.
+    mesh_rules(torch, card)
+    dryrun_collect(dryrun)
+
+    # 23. The kernels line.  Launches: sparse_margin, logistic_grad,
     # block_scatter and prox_update from the dense main path (sparse_margin's,
     # logistic_grad's and lazy_catchup's times at one step over all 8
     # blocks, lazy_flush's at one epoch's flush, their launches on the path), the

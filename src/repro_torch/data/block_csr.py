@@ -290,6 +290,17 @@ def _count_cols(indices: np.ndarray, values: np.ndarray, dim: int) -> np.ndarray
     ).astype(np.int32)
 
 
+def aot_nnz_budget(nnz_max: int, q: int) -> int:
+    """Stacked-layout nnz budget for shape-only (dry-run / perf) shapes.
+
+    The runtime budget is data-dependent (``BlockCSR.stacked``); for
+    shapes without data we model nnz_max/q with 4x slack for skewed text
+    feature popularity, never below one lane octet.  Keep in lockstep
+    with what ``run_fdsvrg_sharded`` feeds the step.
+    """
+    return max(8, -(-nnz_max // q) * 4)
+
+
 def local_margins(
     indices: torch.Tensor, values: torch.Tensor, w_block: torch.Tensor
 ) -> torch.Tensor:

@@ -3,8 +3,9 @@
 The port's own launcher (the reference needs none: JAX drives every
 device of a mesh from one process, while PyTorch runs one process per
 rank).  Each rank joins a process group through a ``file://`` store in a
-fresh directory (no TCP port to collide on), builds the 1-D ``("model",)``
-``DeviceMesh`` over all ranks and calls ``fn(mesh, *args)``; rank 0's
+fresh directory (no TCP port to collide on), builds a ``DeviceMesh`` over
+all ranks (1-D ``("model",)`` unless the caller names a shape and axes)
+and calls ``fn(mesh, *args)``; rank 0's
 return value comes back to the caller.  Ranks are started with the
 ``spawn`` method, so a caller that has already used CUDA can launch them.
 On a CUDA device the kernel library is built in the caller first, so no
@@ -14,6 +15,7 @@ rank runs ``nvcc``.  Nothing here retries a rank or switches backend.
 from __future__ import annotations
 
 import datetime
+import math
 import os
 import shutil
 import tempfile
@@ -38,7 +40,8 @@ def _rank_device(device: str, rank: int) -> torch.device:
 
 
 def _rank_main(rank: int, q: int, fn: Callable, args: tuple, backend: str, device: str,
-               workdir: str, timeout_s: float) -> None:
+               workdir: str, timeout_s: float, mesh_shape: tuple | None = None,
+               mesh_dim_names: tuple = ("model",)) -> None:
     """One rank: join the group, build the mesh, run ``fn``, keep rank 0's
     result; a failure leaves its traceback in ``rank<r>.err``."""
     import torch.distributed as dist
@@ -57,7 +60,8 @@ def _rank_main(rank: int, q: int, fn: Callable, args: tuple, backend: str, devic
         dist.init_process_group(backend, store=store, rank=rank, world_size=q,
                                 timeout=datetime.timedelta(seconds=timeout_s), **bound)
         try:
-            mesh = DeviceMesh(dev.type, list(range(q)), mesh_dim_names=("model",))
+            mesh = DeviceMesh(dev.type, torch.arange(q).reshape(mesh_shape or (q,)).tolist(),
+                              mesh_dim_names=mesh_dim_names)
             out = fn(mesh, *args)
             if rank == 0:
                 torch.save(out, os.path.join(workdir, RESULT + ".tmp"))
@@ -84,6 +88,8 @@ def spawn_ranks(
     device: torch.device | str | None = None,
     timeout_s: float = 300.0,
     workdir: str | None = None,
+    mesh_shape: tuple[int, ...] | None = None,
+    mesh_dim_names: tuple[str, ...] = ("model",),
 ):
     """Run ``fn(mesh, *args)`` on q spawned ranks and return rank 0's result.
 
@@ -94,7 +100,8 @@ def spawn_ranks(
     ``cpu`` every rank on the CPU.  The store and the result go to
     ``workdir`` (default: a fresh temporary directory, removed after).
     NCCL ranks that would share a device raise ``ValueError`` before any
-    rank starts.
+    rank starts.  The mesh is ``mesh_shape`` (default ``(q,)``, ranks in
+    row-major order) with axes ``mesh_dim_names`` (default ``("model",)``).
     When a rank fails the others get a few seconds to fail too, then every
     rank left is killed and :class:`RankError` carries each failed rank's
     traceback; after ``timeout_s`` seconds every rank is killed and it
@@ -104,6 +111,9 @@ def spawn_ranks(
 
     if q < 1:
         raise ValueError(f"need q >= 1 ranks, got {q}")
+    mesh_shape = (q,) if mesh_shape is None else tuple(mesh_shape)
+    if math.prod(mesh_shape) != q or len(mesh_shape) != len(mesh_dim_names):
+        raise ValueError(f"mesh {mesh_shape} with axes {mesh_dim_names} does not fit {q} ranks")
     if backend not in ("gloo", "nccl"):
         raise ValueError(f"backend must be 'gloo' or 'nccl', got {backend!r}")
     device = str(resolve_device(device))
@@ -126,7 +136,8 @@ def spawn_ranks(
     ctx = None
     try:
         ctx = mp.start_processes(
-            _rank_main, args=(q, fn, args, backend, device, workdir, float(timeout_s)),
+            _rank_main, args=(q, fn, args, backend, device, workdir, float(timeout_s),
+                              mesh_shape, tuple(mesh_dim_names)),
             nprocs=q, join=False, start_method="spawn",
         )
         procs = ctx.processes

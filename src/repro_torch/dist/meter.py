@@ -1,7 +1,8 @@
 """Communication accounting and wall-clock cost models.
 
 Port of ``repro.dist.meter`` (pure Python, copied so the port stands
-alone; the reference's TPU roofline model is not carried over).
+alone).  The reference's TPU roofline model becomes :class:`H100Model`,
+the NVIDIA H100's published rates, which ``launch/roofline.py`` reads.
 
 The paper's Figure 7 x-axis is "how many scalars have been communicated";
 its complexity analysis (§4.5) counts, per N gradients:
@@ -129,3 +130,51 @@ class ClusterModel:
             + critical_scalars * self.bytes_per_scalar / self.bandwidth_Bps
             + rounds * self.latency_s
         )
+
+
+# NVIDIA H100 model for the roofline layer (see launch/roofline.py).  Kept
+# here so the cost models and the launch-time roofline share one set of
+# numbers.  Rates of one H100 SXM5 80GB HBM3, dense (no sparsity), at its
+# 700 W power limit, from NVIDIA's H100 Tensor Core GPU datasheet; the
+# inter-node rate from NVIDIA's DGX H100 datasheet.
+@dataclasses.dataclass(frozen=True)
+class H100Model:
+    peak_flops_bf16: float = 989e12  # per card, BF16 tensor cores (datasheet)
+    peak_flops_f32: float = 67e12  # per card, FP32 outside the tensor cores (datasheet)
+    hbm_Bps: float = 3.35e12  # per card, HBM3 (datasheet)
+    # Link per card and direction.  Assumption: cards sit in nodes of 8
+    # (HGX / DGX H100) joined all to all by NVLink 4, 900 GB/s per card in
+    # both directions together (datasheet), so 450 GB/s each way; a mesh
+    # larger than one node has axes that cross nodes, and those run at the
+    # node's network rate, one 400 Gb/s ConnectX-7 port per card (DGX H100
+    # datasheet), 50 GB/s each way.  The slower link sets the term.
+    nvlink_Bps: float = 450e9
+    network_Bps: float = 50e9
+    node_cards: int = 8
+    hbm_bytes: float = 80e9  # per card
+
+    def link_Bps(self, chips: int) -> float:
+        """The link rate of a mesh of ``chips`` cards: NVLink within one
+        node, the node network once the mesh crosses nodes."""
+        return self.nvlink_Bps if chips <= self.node_cards else self.network_Bps
+
+    def peak_flops(self, dtype: str = "bfloat16") -> float:
+        return self.peak_flops_f32 if dtype == "float32" else self.peak_flops_bf16
+
+    def roofline_terms(
+        self, *, flops: float, hbm_bytes: float, collective_bytes: float, chips: int,
+        dtype: str = "bfloat16",
+    ) -> dict[str, float]:
+        compute = flops / (chips * self.peak_flops(dtype))
+        memory = hbm_bytes / (chips * self.hbm_Bps)
+        collective = collective_bytes / (chips * self.link_Bps(chips))
+        dominant = max(
+            ("compute", compute), ("memory", memory), ("collective", collective),
+            key=lambda kv: kv[1],
+        )[0]
+        return {
+            "compute_s": compute,
+            "memory_s": memory,
+            "collective_s": collective,
+            "dominant": dominant,
+        }

@@ -29,6 +29,15 @@ import torch
 from repro_torch.kernels import flash_decode as flash_decode_lib
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, init_rms_scale, normal, rms_norm, softcap
+from repro_torch.sharding.specs import (
+    from_shards,
+    is_dtensor,
+    local_offset,
+    only_dims,
+    split_ways,
+    to_shard,
+    with_dim,
+)
 
 _MASK_VALUE = -1e30
 # The train path processes queries in blocks whose float32 scores for one
@@ -90,16 +99,25 @@ def _project_qkv(params, x, positions, cfg: AttnConfig, ctx):
     return q, k, v
 
 
-def _q_block(b: int, h: int, s: int, kv_chunk: int) -> int:
-    """Query rows per block: the float32 scores [B, H, rows, kv_chunk]
-    stay under SCORE_BLOCK_BYTES."""
-    return max(1, min(s, SCORE_BLOCK_BYTES // (4 * b * h * kv_chunk)))
+def _q_block(q: torch.Tensor, kv_chunk: int) -> int:
+    """Query rows per block of ``q [B, H, S, Dh]``: the float32 scores
+    [B, H, rows, kv_chunk] a device holds (a DTensor's local batch and
+    heads) stay under SCORE_BLOCK_BYTES."""
+    b, h = (q.to_local() if is_dtensor(q) else q).shape[:2]
+    return max(1, min(q.shape[2], SCORE_BLOCK_BYTES // (4 * b * h * kv_chunk)))
 
 
 def _key_chunks(k, v, positions, cfg: AttnConfig, kc: int) -> list:
     """Key chunks of ``kc`` positions in the order of the reference's scan,
     each expanded to full heads (head h uses KV head h // group) in float32:
-    ``(k_r [B, kc, H, Dh], v_r, positions [B, kc])``."""
+    ``(k_r [B, kc, H, Dh], v_r, positions [B, kc])``.  On DTensors the KV
+    heads are first made whole on every rank (the query heads a rank holds
+    need KV heads other ranks hold, unless each rank holds whole groups)."""
+    if is_dtensor(k) and cfg.group > 1:
+        from torch.distributed.tensor import Replicate
+
+        whole = with_dim(k.placements, 2, Replicate())
+        k, v = k.redistribute(k.device_mesh, whole), v.redistribute(v.device_mesh, whole)
     chunks = []
     for c0 in range(0, k.shape[1], kc):
         sl = slice(c0, c0 + kc)
@@ -113,6 +131,8 @@ def _attend(q_blk, qpos, chunks, cfg: AttnConfig, ctx, scale) -> torch.Tensor:
     """Online softmax of the float32 query block ``q_blk [B, H, r, Dh]`` (at
     ``qpos [B, r]``) over ``chunks``, one key chunk at a time: float32
     ``[B, H, r, Dh]``, the reference's scan step for step."""
+    if is_dtensor(q_blk):
+        return _attend_shards(q_blk, qpos, chunks, cfg, ctx, scale)
     b, h, r, dh = q_blk.shape
     acc = torch.zeros((b, h, r, dh), dtype=torch.float32, device=q_blk.device)
     m = torch.full((b, h, r, 1), _MASK_VALUE, dtype=torch.float32, device=q_blk.device)
@@ -140,6 +160,26 @@ def _attend(q_blk, qpos, chunks, cfg: AttnConfig, ctx, scale) -> torch.Tensor:
     return acc / torch.clamp_min(l, 1e-30)
 
 
+def _attend_shards(q_blk, qpos, chunks, cfg: AttnConfig, ctx, scale) -> torch.Tensor:
+    """:func:`_attend` on DTensors, each rank on its own batch and heads
+    shard: every key chunk is laid out like the queries (its heads split as
+    the queries' are; where it was replicated, each rank keeps its slice
+    and nothing moves), then the plain online softmax runs on the local
+    tensors.  DTensor's own einsum would gather the scores of heads split
+    unevenly over the ``model`` axis."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, layout = q_blk.device_mesh, tuple(q_blk.placements)
+    assert all(p in (Shard(0), Shard(1), Replicate()) for p in layout), layout
+    kv_layout = with_dim(layout, 1, Shard(2))  # [B, c, H, Dh]
+    shape, offset = local_offset(q_blk.shape, mesh, layout)
+    rows = slice(offset[0], offset[0] + shape[0])  # this rank's batch rows
+    local = [(to_shard(k.redistribute(mesh, kv_layout)), to_shard(v.redistribute(mesh, kv_layout)),
+              kp[rows]) for k, v, kp in chunks]
+    out = _attend(to_shard(q_blk), qpos[rows], local, cfg, ctx, scale)
+    return from_shards(out, mesh, layout, q_blk.shape)
+
+
 def attention_train(
     params: dict,
     x: torch.Tensor,  # [B, S, D]
@@ -151,9 +191,8 @@ def attention_train(
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """Causal (optionally windowed) attention; returns output and (k, v)
     in cache layout so prefill shares this path."""
-    b, s, d = x.shape
-    h, dh = cfg.num_heads, cfg.head_dim
-    scale = dh ** -0.5
+    s = x.shape[1]
+    scale = cfg.head_dim ** -0.5
     kv_chunk = cfg.kv_chunk if kv_chunk is None else kv_chunk
     q, k, v = _project_qkv(params, x, positions, cfg, ctx)
 
@@ -165,12 +204,18 @@ def attention_train(
     assert s % kv_chunk == 0, f"seq {s} % kv_chunk {kv_chunk} != 0"
     qf = q.float()
     chunks = _key_chunks(k, v, positions, cfg, kv_chunk)
-    out = torch.empty((b, h, s, dh), dtype=torch.float32, device=x.device)
-    rows = _q_block(b, h, s, kv_chunk)
-    for q0 in range(0, s, rows):
-        qs = slice(q0, min(s, q0 + rows))
-        out[:, :, qs] = _attend(qf[:, :, qs], positions[:, qs], chunks, cfg, ctx, scale)
+    rows = _q_block(qf, kv_chunk)
+    out = _cat_rows([
+        _attend(qf[:, :, q0:q0 + rows], positions[:, q0:q0 + rows], chunks, cfg, ctx, scale)
+        for q0 in range(0, s, rows)])
     return y_project(params, out, ctx, x.dtype), (k, v)
+
+
+def _cat_rows(blocks: list) -> torch.Tensor:
+    """The query blocks' outputs ``[B, H, r, Dh]`` joined along the rows
+    (one ``cat``, so DTensor blocks keep their layout; one block is
+    returned as it is)."""
+    return blocks[0] if len(blocks) == 1 else torch.cat(blocks, dim=2)
 
 
 def _attention_blockwise(q, k, v, positions, cfg: AttnConfig, ctx, scale) -> torch.Tensor:
@@ -182,26 +227,52 @@ def _attention_blockwise(q, k, v, positions, cfg: AttnConfig, ctx, scale) -> tor
     for sliding-window layers.  Assumes canonical positions (arange), which
     train/prefill use.  Returns float32 ``[B, H, S, Dh]``.
     """
-    b, h, s, dh = q.shape
+    s = q.shape[2]
     qc = cfg.q_chunk
     kc = min(cfg.kv_chunk, qc)
     assert s % qc == 0 and qc % kc == 0, (s, qc, kc)
     chunks = _key_chunks(k, v, positions, cfg, kc)
-    out = torch.empty((b, h, s, dh), dtype=torch.float32, device=q.device)
+    blocks = []
     for i in range(s // qc):
         qs = slice(i * qc, (i + 1) * qc)
         hi = (i + 1) * qc
         lo = 0
         if cfg.window is not None:
             lo = max(0, (i * qc - cfg.window) // kc * kc)
-        out[:, :, qs] = _attend(q[:, :, qs].float(), positions[:, qs],
-                                chunks[lo // kc: hi // kc], cfg, ctx, scale)
-    return out
+        blocks.append(_attend(q[:, :, qs].float(), positions[:, qs],
+                              chunks[lo // kc: hi // kc], cfg, ctx, scale))
+    return _cat_rows(blocks)
 
 
 def y_project(params, out_f32, ctx, dtype):
-    y = torch.einsum("bhsd,hdo->bso", out_f32.to(dtype), params["wo"])
+    out = out_f32.to(dtype)
+    if is_dtensor(out):
+        y = _heads_contracted(out, params["wo"])
+    else:
+        y = torch.einsum("bhsd,hdo->bso", out, params["wo"])
     return ctx.constrain(y, "batch", "seq", "embed")
+
+
+def _heads_contracted(out, wo) -> torch.Tensor:
+    """``einsum("bhsd,hdo->bso", out, wo)`` on DTensors, each rank over its
+    own heads: ``wo`` laid out with its heads split as ``out``'s are, the
+    local contraction, and the ranks' partial sums left pending
+    (``Partial``) over the axes that split the heads (and over those where
+    ``out`` is itself a pending sum).  DTensor's own einsum would gather
+    ``out`` where the heads split unevenly."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh, layout = out.device_mesh, tuple(out.placements)
+    assert all(p in (Shard(0), Shard(1), Replicate()) or p.is_partial() for p in layout), layout
+    w = wo.redistribute(mesh, with_dim(only_dims(layout, (1,)), 1, Shard(0)))
+    # each rank's gradient of w sums over its own batch rows (or its part of
+    # a pending sum) only: pending over those axes
+    w_grad = tuple(Partial() if p == Shard(0) or p.is_partial() else q
+                   for p, q in zip(layout, w.placements))
+    y = torch.einsum("bhsd,hdo->bso", to_shard(out), to_shard(w, w_grad))
+    # the contraction is linear: a pending sum in ``out`` stays pending in y
+    y_layout = with_dim(layout, 1, Partial())
+    return from_shards(y, mesh, y_layout, (out.shape[0], out.shape[2], wo.shape[-1]))
 
 
 def init_kv_cache(
@@ -214,6 +285,41 @@ def init_kv_cache(
         "k": ctx.constrain(k, "batch", "seq_kv", None, None),
         "v": ctx.constrain(v, "batch", "seq_kv", None, None),
     }
+
+
+def _write_position(cache: torch.Tensor, pos: int, new: torch.Tensor) -> None:
+    """``cache[:, pos] = new[:, 0]`` in place.  On a DTensor whose position
+    axis is split over ranks the rank holding ``pos`` writes it into its
+    shard (``new`` brought to the cache's layout first)."""
+    if not is_dtensor(cache):
+        cache[:, pos : pos + 1] = new
+        return
+    from torch.distributed.tensor import Replicate
+
+    mesh = cache.device_mesh
+    new = new.redistribute(mesh, with_dim(cache.placements, 1, Replicate())).to_local()
+    shape, offset = local_offset(cache.shape, mesh, cache.placements)
+    at = pos - offset[1]
+    if 0 <= at < shape[1]:
+        cache.to_local()[:, at : at + 1] = new
+
+
+def _decode_local(qg, k, v, length: int, scale: float, cfg: AttnConfig) -> torch.Tensor:
+    """The ``flash_decode`` route on DTensors: the kernel runs on each
+    rank's local batch shard, which needs the cache's positions and heads
+    whole on every rank (a mesh whose ``model`` axis is 1).  Split-K of the
+    kernel across ranks is not written, so a split cache raises."""
+    mesh = k.device_mesh
+    if split_ways(k, 1) * split_ways(k, 2) > 1:
+        raise ValueError(
+            "flash_decode on a mesh needs the KV cache's positions and heads on one rank "
+            f"(placements {tuple(k.placements)} over mesh {tuple(mesh.shape)}); "
+            "pass use_kernels=False for the plain decode under DTensor")
+    batch = only_dims(k.placements, (0,))
+    out = ops.decode_attention_batched(
+        qg.redistribute(mesh, batch).to_local(), k.to_local(), v.to_local(), length=length,
+        scale=scale, softcap=cfg.attn_softcap, window=cfg.window)
+    return from_shards(out, mesh, batch, qg.shape)
 
 
 def attention_decode(
@@ -233,14 +339,20 @@ def attention_decode(
     positions = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
 
     q, k_new, v_new = _project_qkv(params, x, positions, cfg, ctx)
+    if is_dtensor(q):  # the query heads whole, to group them by KV head
+        from torch.distributed.tensor import Replicate
+
+        q = q.redistribute(q.device_mesh, with_dim(q.placements, 1, Replicate()))
     # q: [B, H, 1, Dh] -> grouped [B, Hkv, G, Dh]
     qg = q[:, :, 0, :].reshape(b, hkv, g, dh)
 
     k, v = cache["k"], cache["v"]
-    k[:, pos : pos + 1] = k_new
-    v[:, pos : pos + 1] = v_new
+    _write_position(k, pos, k_new)
+    _write_position(v, pos, v_new)
 
-    if use_kernels:
+    if use_kernels and is_dtensor(k):
+        out = _decode_local(qg, k, v, pos + 1, scale, cfg)
+    elif use_kernels:
         out = ops.decode_attention_batched(qg, k, v, length=pos + 1, scale=scale,
                                            softcap=cfg.attn_softcap, window=cfg.window)
     else:
@@ -248,9 +360,7 @@ def attention_decode(
             qg, k, v, pos + 1, scale, softcap=cfg.attn_softcap, window=cfg.window
         )
     out = out.reshape(b, 1, cfg.num_heads, dh).transpose(1, 2)  # [B, H, 1, Dh]
-    y = torch.einsum("bhsd,hdo->bso", out.to(x.dtype), params["wo"])
-    y = ctx.constrain(y, "batch", None, "embed")
-    return y, cache
+    return y_project(params, out, ctx, x.dtype), cache
 
 
 def attention_ref(

@@ -15,6 +15,8 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.specs import from_shards, is_dtensor, local_offset, only_dims, to_shard
+
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     dtype = x.dtype
@@ -123,8 +125,51 @@ def init_embedding(gen: torch.Generator, vocab: int, d_model: int, dtype: torch.
     return normal(gen, (vocab, d_model), d_model ** -0.5, dtype)
 
 
+def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """The rows ``table[ids]``.  On a DTensor table each rank reads the rows
+    of its own shard (:func:`_lookup_shards`)."""
+    if is_dtensor(table):
+        return _lookup_shards(table, ids)
+    return table[ids.long()]
+
+
+def _lookup_shards(table, ids) -> torch.Tensor:
+    """``table[ids]`` for a DTensor ``table [V, D]`` whose vocabulary may be
+    split over ranks (``ids`` a DTensor split along its rows, or a plain
+    tensor, replicated): each rank reads the ids that fall in its
+    vocabulary shard from its own rows, zeros for the rest, and the pieces
+    are left pending (``Partial``) over the axes that split the vocabulary,
+    Megatron's vocabulary-parallel embedding.  DTensor's own indexing
+    would gather the table, and its ``embedding`` rule's backward does not
+    run on every torch release this port runs on."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = table.device_mesh
+    split = only_dims(table.placements, (0,))
+    if tuple(table.placements) != split:  # only the vocabulary stays split
+        table = table.redistribute(mesh, split)
+    if not isinstance(ids, DTensor):
+        ids = DTensor.from_local(ids, mesh, (Replicate(),) * mesh.ndim, run_check=False)
+    # the ids whole on the axes that split the vocabulary, as they were on the rest
+    rows = tuple(Replicate() if t == Shard(0) else p
+                 for t, p in zip(split, ids.placements))
+    ids = ids.redistribute(mesh, rows)
+    shape, offset = local_offset(table.shape, mesh, split)
+    # the table's gradient on a rank sums its own ids only: pending over
+    # the axes that split the ids
+    grad = tuple(Partial() if t == Replicate() and p.is_shard() else t
+                 for t, p in zip(split, rows))
+    local = to_shard(table, grad)
+    idx = ids.to_local().long() - offset[0]
+    inside = (idx >= 0) & (idx < shape[0])
+    out = local[torch.where(inside, idx, 0)]
+    out = torch.where(inside[..., None], out, torch.zeros((), dtype=out.dtype, device=out.device))
+    layout = tuple(Partial() if t == Shard(0) else p for t, p in zip(split, rows))
+    return from_shards(out, mesh, layout, tuple(ids.shape) + (table.shape[1],))
+
+
 def embed_tokens(table: torch.Tensor, tokens: torch.Tensor, ctx, scale: bool) -> torch.Tensor:
-    x = table[tokens.long()]  # [B, S, D]
+    x = lookup(table, tokens)  # [B, S, D]
     if scale:
         x = x * torch.tensor(table.shape[-1] ** 0.5, dtype=x.dtype, device=x.device)
     return ctx.constrain(x, "batch", "seq", "embed")

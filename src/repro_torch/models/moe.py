@@ -24,8 +24,13 @@ a training step the gathers' backward is ``scatter_add_``, whose atomics
 add in a varying order on the card, so MoE gradients do not repeat bit
 for bit there.
 
-Without a mesh there is one dispatch group (``_num_groups``); the group
-axis stays, written out as a batch dimension where the reference vmaps.
+Dispatch groups follow the mesh's batch axes, as in the reference
+(``_num_groups``: one group per data shard, one without a mesh); the
+group axis is written out as a batch dimension where the reference vmaps.
+On a mesh the integer dispatch plan of each group is computed on the rank
+that holds it (:func:`_per_group`), and the gathers, the expert GEMMs on
+the expert shards and the combine run under DTensor.
+
 Aux outputs: load-balance loss (Switch-style), router z-loss and the
 fraction of pairs dropped.  The expert GEMMs are ``torch.einsum``, as the
 reference leaves them to XLA.
@@ -39,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import normal
+from repro_torch.sharding.specs import axis_size, from_shards, is_dtensor, only_dims
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,9 +75,15 @@ def capacity(tokens: int, cfg: MoEConfig) -> int:
 
 
 def _num_groups(ctx, b: int) -> int:
-    """Dispatch groups = data-parallel shards in the reference; the port's
-    contexts carry no mesh yet, so one group."""
-    return 1
+    """Dispatch groups = data-parallel shards (GShard-style), so routing,
+    capacity and the token<->expert buffers stay shard-local: the size of
+    the ``batch`` axes, halved until it divides ``b`` (1 without a mesh)."""
+    if ctx is None or getattr(ctx, "mesh", None) is None:
+        return 1
+    g = axis_size(ctx.mesh, "batch")
+    while g > 1 and b % g:
+        g //= 2
+    return max(1, g)
 
 
 def _act(h: torch.Tensor, act: str) -> torch.Tensor:
@@ -89,6 +101,55 @@ def _route(xt: torch.Tensor, router: torch.Tensor, k: int):
     top_w, top_e = torch.topk(probs, k, dim=-1)
     top_w = top_w / torch.clamp_min(top_w.sum(dim=-1, keepdim=True), 1e-9)
     return logits, probs, top_w, top_e
+
+
+def _dispatch_plan(top_e: torch.Tensor, cap: int, e: int) -> tuple:
+    """The integer side of the sort-based dispatch of each group's (token,
+    expert) pairs ``top_e [G, Tg, k]``: ``order`` (pairs sorted by expert,
+    stably), for each of the ``E * cap`` buffer slots its sorted position
+    ``src``, whether it is ``filled`` and the token it reads ``buf_tok``
+    (``Tg``: the zero pad row), and for each pair in token-major order the
+    slot it reads back ``pick`` and whether it was ``kept``; ``keep`` is
+    ``kept`` in sorted order.  Each group's plan is its own."""
+    g, tg, k = top_e.shape
+    n = tg * k
+    dev = top_e.device
+    flat_e = top_e.reshape(g, n)
+    flat_t = torch.arange(tg, device=dev).repeat_interleave(k).expand(g, n)
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    se = torch.gather(flat_e, 1, order)
+    st = torch.gather(flat_t, 1, order)
+    first = torch.searchsorted(se, se, side="left")
+    rank = torch.arange(n, device=dev) - first
+    keep = rank < cap  # [G, n], sorted order
+    # Slot (e, c) reads sorted position start_e + c while c < count_e.
+    experts = torch.arange(e, device=dev).expand(g, e).contiguous()
+    start = torch.searchsorted(se, experts, side="left")  # [G, E]
+    count = torch.searchsorted(se, experts, side="right") - start
+    c_idx = torch.arange(cap, device=dev)
+    filled = c_idx[None, None, :] < count[:, :, None]  # [G, E, C]
+    src = torch.clamp_max(start[:, :, None] + c_idx[None, None, :], n - 1).reshape(g, e * cap)
+    filled = filled.reshape(g, e * cap)
+    buf_tok = torch.where(filled, torch.gather(st, 1, src), tg)
+    slot_sorted = se * cap + rank  # valid where keep
+    inv = torch.empty_like(order).scatter_(1, order, torch.arange(n, device=dev).expand(g, n))
+    slot = torch.gather(slot_sorted, 1, inv)  # [G, n], token-major (t, j) order
+    kept = torch.gather(keep, 1, inv)
+    return order, src, filled, buf_tok, torch.where(kept, slot, 0), kept, keep
+
+
+def _per_group(fn, x: torch.Tensor, *args) -> tuple:
+    """``fn(x, *args)`` for a function whose outputs are integer tensors
+    with ``x``'s leading group axis and depend on each group alone.  On a
+    DTensor it runs on each rank's local groups (``x`` first brought to a
+    layout split along the group axis only) and the outputs come back as
+    DTensors laid out the same way."""
+    if not is_dtensor(x):
+        return fn(x, *args)
+    groups = only_dims(x.placements, (0,))
+    x = x.redistribute(x.device_mesh, groups)
+    return tuple(from_shards(o, x.device_mesh, groups, (x.shape[0],) + tuple(o.shape[1:]))
+                 for o in fn(x.to_local(), *args))
 
 
 def moe_ffn(
@@ -109,33 +170,16 @@ def moe_ffn(
 
     # ---- routing (per group) ----
     logits, probs, top_w, top_e = _route(xg, params["router"], k)  # [G, Tg, (E | k)]
-    chosen = torch.zeros((g, tg, e), dtype=torch.float32, device=dev).scatter_(2, top_e, 1.0)
+    chosen = (top_e[..., None] == torch.arange(e, device=dev)).any(dim=2).float()  # [G, Tg, E]
     frac_tokens = chosen.mean(dim=1)  # [G, E]: share of tokens that picked each expert
     frac_probs = probs.mean(dim=1)
     lb_loss = e * torch.sum(frac_tokens * frac_probs, dim=-1)  # [G]
     z_loss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2, dim=-1)
 
     # ---- sort-based dispatch (gathers only) ----
-    n = tg * k
-    flat_e = top_e.reshape(g, n)
-    flat_t = torch.arange(tg, device=dev).repeat_interleave(k).expand(g, n)
-    flat_w = top_w.reshape(g, n)
-    order = torch.argsort(flat_e, dim=-1, stable=True)
-    se = torch.gather(flat_e, 1, order)
-    st = torch.gather(flat_t, 1, order)
+    order, src, filled, buf_tok, pick, kept, keep = _per_group(_dispatch_plan, top_e, cap, e)
+    flat_w = top_w.reshape(g, tg * k)
     sw = torch.gather(flat_w, 1, order)
-    first = torch.searchsorted(se, se, side="left")
-    rank = torch.arange(n, device=dev) - first
-    keep = rank < cap  # [G, n], sorted order
-    # Slot (e, c) reads sorted position start_e + c while c < count_e.
-    experts = torch.arange(e, device=dev).expand(g, e).contiguous()
-    start = torch.searchsorted(se, experts, side="left")  # [G, E]
-    count = torch.searchsorted(se, experts, side="right") - start
-    c_idx = torch.arange(cap, device=dev)
-    filled = c_idx[None, None, :] < count[:, :, None]  # [G, E, C]
-    src = torch.clamp_max(start[:, :, None] + c_idx[None, None, :], n - 1).reshape(g, e * cap)
-    filled = filled.reshape(g, e * cap)
-    buf_tok = torch.where(filled, torch.gather(st, 1, src), tg)  # tg: the zero pad row
     buf_w = torch.where(filled, torch.gather(sw, 1, src), 0.0)
 
     xt_pad = torch.cat([xg, torch.zeros((g, 1, d), dtype=x.dtype, device=dev)], dim=1)
@@ -152,11 +196,7 @@ def moe_ffn(
 
     # ---- combine: each token sums its k kept contributions in top-k order ----
     contrib = out_buf.reshape(g, e * cap, d) * buf_w[..., None].to(out_buf.dtype)
-    slot_sorted = se * cap + rank  # valid where keep
-    inv = torch.empty_like(order).scatter_(1, order, torch.arange(n, device=dev).expand(g, n))
-    slot = torch.gather(slot_sorted, 1, inv)  # [G, n], token-major (t, j) order
-    kept = torch.gather(keep, 1, inv)
-    picked = torch.gather(contrib, 1, torch.where(kept, slot, 0)[..., None].expand(g, n, d))
+    picked = torch.gather(contrib, 1, pick[..., None].expand(g, tg * k, d))
     picked = torch.where(kept[..., None], picked, torch.zeros((), dtype=picked.dtype, device=dev))
     y = picked.reshape(g, tg, k, d).sum(dim=2)
     y = ctx.constrain(y.reshape(b, s, d), "batch", "seq", "embed")

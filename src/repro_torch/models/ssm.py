@@ -156,11 +156,13 @@ def ssd_chunked(
 
     # 3) inter-chunk recurrence over compressed states (sequential in C only)
     chunk_decay = torch.exp(la_cum[..., -1])  # [B, H, C]
-    h_prevs = torch.empty((b, c, h, p, n), dtype=torch.float32, device=x.device)
-    h_cur = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    h_cur = torch.zeros_like(states[:, 0])  # [B, H, P, N] float32
+    entering = []  # the state entering each chunk
     for i in range(c):
-        h_prevs[:, i] = h_cur  # the state entering chunk i
+        entering.append(h_cur)
         h_cur = h_cur * chunk_decay[:, :, i, None, None] + states[:, i]
+    h_prevs = torch.stack(entering, dim=1)  # [B, C, H, P, N]
+    del entering
 
     # 4) inter-chunk output: y_off[b,c,l,h,p] = (C_l . h_prev[h,p,:]) exp(la_cum[h,l])
     state_decay_out = op(torch.exp(la_cum))  # [B, H, C, L]

@@ -32,8 +32,13 @@ Three execution modes share the layer code:
   * ``decode_step`` — one token in, one logits row out, the cache updated
                       IN PLACE (the reference returns a new cache)
 
-``make_ctx``, ``param_specs`` and ``cache_specs`` (the mesh rules) are
-not ported yet (ROADMAP queue 1, the LM mesh rules).
+Sharding: every tensor is annotated with logical axes
+(``sharding/specs.py``); :func:`make_ctx` degrades any rule whose
+dimension doesn't divide the mesh axis to replication, so every (arch x
+mesh) combination runs; :func:`param_specs` and :func:`cache_specs` give
+the parameters' and the cache's specs (the parameters' leaves keep the
+reference's leading, replicated repeat axis).  On a mesh the tensors are
+DTensors; the model code is the same.
 """
 
 from __future__ import annotations
@@ -54,17 +59,58 @@ from repro_torch.models.layers import (
     init_mlp,
     init_rms_scale,
     lm_logits,
+    lookup,
     mlp,
     normal,
     rms_norm,
 )
-from repro_torch.sharding.specs import ShardingCtx
+from repro_torch.sharding.specs import (
+    RULES,
+    PartitionSpec,
+    ShardingCtx,
+    from_shards,
+    is_dtensor,
+    local_offset,
+    mesh_axes,
+    spec_placements,
+)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 # ---------------------------------------------------------------------------
 # Config plumbing
 # ---------------------------------------------------------------------------
+
+
+def make_ctx(mesh, cfg: ModelConfig, overrides: dict | None = None) -> ShardingCtx:
+    """Sharding context for one (model, mesh) pair.
+
+    Head/kv-head counts that don't divide the ``model`` axis stay sharded
+    (uneven shards, as GSPMD pads), which beats the redundant compute of
+    replication.  Few kv heads (fewer than half the ``model`` axis, MQA
+    included) stay replicated.  Experts, FFN width, the padded vocabulary
+    and the SSD heads degrade to replication where they don't divide.
+    """
+    rules = dict(RULES)
+    if mesh is not None:
+        tp = mesh_axes(mesh).get("model", 1)
+
+        def degrade(rule_name: str, dim: int):
+            if dim and dim % tp != 0:
+                rules[rule_name] = None
+
+        if not cfg.shard_heads or (cfg.num_heads and cfg.num_heads < tp // 2):
+            rules["heads"] = None
+        if cfg.num_kv_heads and cfg.num_kv_heads < tp // 2:
+            rules["kv_heads"] = None  # MQA/few-kv: replicate k/v activations
+        degrade("experts", cfg.num_experts)
+        degrade("mlp", cfg.d_ff)
+        degrade("vocab", padded_vocab(cfg, tp))
+        if cfg.has_ssm:
+            degrade("ssm_heads", (cfg.ssm_expand * cfg.d_model) // cfg.ssm_head_dim)
+    if overrides:
+        rules.update(overrides)
+    return ShardingCtx(mesh=mesh, rules=rules)
 
 
 def padded_vocab(cfg: ModelConfig, tp: int = 16) -> int:
@@ -224,6 +270,88 @@ def init_params(
     return params
 
 
+def _map_with_path(fn, tree, path: tuple = ()):
+    """``fn(path, leaf)`` over a parameter nest (dicts and tuples), keeping
+    its structure; ``path`` is the tuple of keys down to the leaf."""
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_with_path(fn, v, path + (i,)) for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def param_specs(params, cfg: ModelConfig, ctx: ShardingCtx, zero1: bool = True):
+    """Spec nest for the parameter nest (any tensors with shapes: plain,
+    ``meta`` or DTensors).
+
+    Feature axes ride the ``model`` axis (the paper's partition); when
+    ``zero1`` a remaining large axis is additionally sharded over the data
+    axes, which is where master params / optimizer state live (ZeRO-1).
+    Block leaves carry a leading stacked repeat axis (always replicated).
+    """
+    z = "zero1" if zero1 else None
+
+    def spec_of(path: tuple, x) -> PartitionSpec:
+        keys = [k for k in path if isinstance(k, str)]
+        leaf = keys[-1]
+        nd = x.dim()
+        shape = tuple(x.shape)
+
+        def s(*names):  # block leaf: leading repeat axis
+            assert len(names) + 1 == nd, (path, nd, names)
+            return ctx.spec_div(shape, None, *names)
+
+        if "vision_proj" in keys:
+            return ctx.spec_div(shape, z, None)
+        if "embed" in keys:
+            if cfg.modality == "audio-codec":
+                return ctx.spec_div(shape, None, "vocab", z)
+            return ctx.spec_div(shape, "vocab", z)
+        if "lm_head" in keys:
+            if cfg.modality == "audio-codec":
+                return ctx.spec_div(shape, None, z, "vocab")
+            return ctx.spec_div(shape, z, "vocab")
+        if "blocks" not in keys:  # final_norm etc.
+            return ctx.spec(*([None] * nd))
+        if leaf == "wq":
+            return s(z, "heads", None)
+        if leaf in ("wk", "wv"):
+            return s(z, "kv_heads", None)
+        if leaf == "wo":
+            return s("heads", None, z)
+        if leaf in ("w_gate", "w_up"):
+            if nd == 4:  # stacked expert weights [R, E, D, F]
+                return s("experts", z, "expert_mlp")
+            return s(z, "mlp")
+        if leaf == "w_down":
+            if nd == 4:
+                return s("experts", "expert_mlp", z)
+            return s("mlp", z)
+        if leaf in ("router", "in_proj", "out_proj"):
+            return s(z, None)
+        # norms, conv weights, scalars: replicated beyond the repeat axis
+        return ctx.spec(*([None] * nd))
+
+    return _map_with_path(spec_of, params)
+
+
+def cache_specs(cfg: ModelConfig, ctx: ShardingCtx):
+    """Spec nest matching :func:`init_cache`'s structure."""
+    out = []
+    for tmpl in cfg.pattern:
+        if tmpl.mixer in ("global", "local"):
+            out.append({
+                "k": ctx.spec(None, "batch", "seq_kv", None, None),
+                "v": ctx.spec(None, "batch", "seq_kv", None, None),
+            })
+        else:
+            out.append({
+                "conv": ctx.spec(None, "batch", None, None),
+                "state": ctx.spec(None, "batch", "ssm_heads", None, None),
+            })
+    return tuple(out)
+
+
 # ---------------------------------------------------------------------------
 # Embedding of model inputs
 # ---------------------------------------------------------------------------
@@ -234,7 +362,7 @@ def _embed_codebooks(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Te
     b, s, _ = tokens.shape
     x = torch.zeros((b, s, cfg.d_model), dtype=_dtype(cfg), device=tokens.device)
     for i in range(cfg.num_codebooks):
-        x = x + params["embed"][i][tokens[:, :, i].long()]
+        x = x + lookup(params["embed"][i], tokens[:, :, i])
     return x
 
 
@@ -408,6 +536,11 @@ def forward(params, cfg: ModelConfig, batch: dict, ctx: ShardingCtx):
     """-> (logits, aux).  aux carries the MoE losses and the loss mask.
     While autograd records, each repeat of the pattern goes through
     :func:`_remat`."""
+    with ctx.replicate_plain():
+        return _forward(params, cfg, batch, ctx)
+
+
+def _forward(params, cfg: ModelConfig, batch: dict, ctx: ShardingCtx):
     x, positions, loss_mask = embed_inputs(params, cfg, batch, ctx)
     aux = {k: torch.zeros((), dtype=torch.float32, device=x.device) for k in _ZERO_AUX}
     repeats = [_unstack(p, cfg.num_repeats) for p in params["blocks"]]
@@ -444,23 +577,48 @@ def init_cache(
     dtype = _dtype(cfg)
     r = cfg.num_repeats
     caches = []
-    for tmpl in cfg.pattern:
+    for tmpl, spec in zip(cfg.pattern, cache_specs(cfg, ctx)):
         if tmpl.mixer in ("global", "local"):
             acfg = attn_config(cfg, tmpl)
             shape = (r, batch, max_len, acfg.num_kv_heads, acfg.head_dim)
             caches.append({
-                "k": torch.zeros(shape, dtype=dtype, device=device),
-                "v": torch.zeros(shape, dtype=dtype, device=device),
+                "k": _zeros(shape, dtype, device, ctx, spec["k"]),
+                "v": _zeros(shape, dtype, device, ctx, spec["v"]),
             })
         else:
             scfg = ssm_config(cfg)
             conv = (r, batch, scfg.conv_width - 1, scfg.d_inner + 2 * scfg.d_state)
             state = (r, batch, scfg.num_heads, scfg.head_dim, scfg.d_state)
             caches.append({
-                "conv": torch.zeros(conv, dtype=dtype, device=device),
-                "state": torch.zeros(state, dtype=torch.float32, device=device),
+                "conv": _zeros(conv, dtype, device, ctx, spec["conv"]),
+                "state": _zeros(state, torch.float32, device, ctx, spec["state"]),
             })
     return tuple(caches)
+
+
+def _zeros(shape: tuple, dtype, device, ctx: ShardingCtx, spec: PartitionSpec) -> torch.Tensor:
+    """Zeros on ``device``; on a mesh a DTensor laid out by ``spec``, each
+    rank allocating only its shard there."""
+    if ctx.mesh is None:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    placements = spec_placements(ctx.mesh, spec)
+    local, _ = local_offset(shape, ctx.mesh, placements)
+    return from_shards(torch.zeros(local, dtype=dtype, device=device), ctx.mesh, placements,
+                       shape)
+
+
+def _write_repeat(dst: torch.Tensor, r: int, src: torch.Tensor) -> None:
+    """``dst[r, :, :n] = src`` for ``src`` of ``n`` positions along
+    dimension 1.  A DTensor's position axis may be split over ranks, so its
+    repeat ``r`` is written whole, ``src`` zero-padded to the cache's
+    length."""
+    n = src.shape[1]
+    if not is_dtensor(dst):
+        dst[r, :, :n] = src
+        return
+    if n != dst.shape[2]:
+        src = F.pad(src, (0, 0) * (src.dim() - 2) + (0, dst.shape[2] - n))
+    dst[r].copy_(src)
 
 
 def decode_step(
@@ -480,6 +638,12 @@ def decode_step(
     on the card (one launch per attention layer) and its plain version on
     the CPU; without, the plain version everywhere.  Vision decodes text
     tokens only: the patches were consumed at prefill."""
+    with ctx.replicate_plain():
+        return _decode_step(params, cfg, cache, tokens, pos, ctx, use_kernels)
+
+
+def _decode_step(params, cfg: ModelConfig, cache, tokens, pos: int, ctx: ShardingCtx,
+                 use_kernels: bool):
     if cfg.modality == "audio-codec":
         x = _embed_codebooks(params, cfg, tokens)
     else:
@@ -500,6 +664,11 @@ def prefill(params, cfg: ModelConfig, batch: dict, max_len: int, ctx: ShardingCt
     room up to max_len).  Each layer's k and v (or SSD conv window and
     state) go straight into the preallocated cache; logits are computed
     for the last position only."""
+    with ctx.replicate_plain():
+        return _prefill(params, cfg, batch, max_len, ctx)
+
+
+def _prefill(params, cfg: ModelConfig, batch: dict, max_len: int, ctx: ShardingCtx):
     x, positions, _ = embed_inputs(params, cfg, batch, ctx)
     b, s, _ = x.shape
     cache = init_cache(cfg, b, max(max_len, s), ctx, device=x.device)
@@ -507,12 +676,8 @@ def prefill(params, cfg: ModelConfig, batch: dict, max_len: int, ctx: ShardingCt
         x = ctx.constrain(x, "batch", "seq", "embed")
         for tmpl, p, c in zip(cfg.pattern, params["blocks"], cache):
             x, _, layer = _apply_block_train(tmpl, _at(p, r), x, positions, cfg, ctx, True)
-            if tmpl.mixer in ("global", "local"):
-                c["k"][r, :, :s] = layer["k"]
-                c["v"][r, :, :s] = layer["v"]
-            else:
-                c["conv"][r] = layer["conv"]
-                c["state"][r] = layer["state"]
+            for name, value in layer.items():
+                _write_repeat(c[name], r, value)
             del layer
     x = rms_norm(x[:, -1:, :], params["final_norm"], cfg.norm_eps)
     return output_logits(params, cfg, x, ctx), cache

@@ -24,6 +24,10 @@ def make_serve_step(cfg: ModelConfig, ctx: ShardingCtx, *, use_kernels: bool = T
     """
 
     def serve_step(params, cache, tokens, pos):
+        with ctx.replicate_plain():
+            return step(params, cache, tokens, pos)
+
+    def step(params, cache, tokens, pos):
         logits, cache = transformer.decode_step(
             params, cfg, cache, tokens, pos, ctx, use_kernels=use_kernels
         )
@@ -33,7 +37,9 @@ def make_serve_step(cfg: ModelConfig, ctx: ShardingCtx, *, use_kernels: bool = T
             mask = torch.arange(vpad, device=logits.device) < v
             logits = torch.where(mask, logits, torch.tensor(-1e30, dtype=logits.dtype,
                                                             device=logits.device))
-        next_tokens = torch.argmax(logits, dim=-1).to(torch.int32)
+        # the vocabulary whole on a mesh: argmax over a split axis is DTensor's weak spot
+        whole = ctx.constrain(logits, "batch", *([None] * (logits.dim() - 1)))
+        next_tokens = torch.argmax(whole, dim=-1).to(torch.int32)
         return next_tokens, logits, cache
 
     return serve_step
