@@ -124,9 +124,21 @@ Then the mesh rules (``mesh_rules``): one NCCL rank on a (data=1,
 model=1) ``DeviceMesh`` trains smollm-360m at full width and depth for 3
 steps with the state laid out by ``state_specs``, bitwise the same steps
 without a mesh, and decodes 16 tokens at B = 4 over a 512-token prompt
-with the cache laid out by ``cache_specs``: the no-mesh tokens and 512
-``flash_decode`` launches, s/step and ms/token beside the no-mesh
-figures.  Then the dry-run (``dryrun``), started on the host at the
+with the cache laid out by ``cache_specs`` (fed the no-mesh run's
+tokens): the no-mesh tokens, 512 ``flash_decode`` launches and no merge,
+s/step and ms/token beside the no-mesh figures.  Then split-K of
+``flash_decode`` across ranks (``decode_splitk``): the cache's positions
+cut into R shards as DTensor cuts them, R ranks played as threads of
+this process, each running the mesh route's ``split_k_decode`` (its
+shard's partials at its offset, the ranks' partials gathered, the merge in
+rank order) against the unsplit kernel and the plain versions within 2e-5
+* max|v|, every rank the same bits, bitwise across two runs, launches
+against their closed form, at qwen3-14b's decode shapes (B = 1 and 4, 32,768
+positions, R = 2, 4, 8) and gemma2-9b's with its softcap and window (R =
+4, three shards before the window), with device ms of a rank's partials,
+the merge and the unsplit kernel beside their bounds (the decode through
+the entry point on such a mesh needs two cards: ``tools/mesh_check.py
+--cards 4``).  Then the dry-run (``dryrun``), started on the host at the
 beginning (no card visible, under ``nice``) and collected here:
 ``repro_torch.launch.dryrun --smoke`` (reduced smollm-360m, a fake 2 x 4
 mesh), smollm-360m x ``train_4k`` and the FD-SVRG outer on a fake 16 x 16
@@ -2262,13 +2274,17 @@ DRYRUN_JOBS = (("smoke", ["--smoke"]),
 def _mesh_rank(mesh, s: dict) -> dict:
     """One rank of a (data, model) mesh: ``MESH_TRAIN_STEPS`` train steps
     of ``s["arch"]`` at full width and depth from seed 0 without a mesh and
-    then on ``mesh`` (the state laid out by ``state_specs``), then, where
-    ``s["decode"]``, a greedy decode at ``MESH_DECODE`` without a mesh and
-    on the mesh (the cache laid out by ``cache_specs``), each run's
-    ``flash_decode`` launches counted.  Rank 0 returns both runs' metrics,
-    masters, tokens and times; every rank checks that its masters, ``m``
-    and ``v`` are its ``state_specs`` slice.  ``s["dtype"]``, where given,
-    replaces the preset's compute dtype."""
+    then on ``mesh`` (the state laid out by ``state_specs``); then a greedy
+    decode at ``MESH_DECODE`` without a mesh and on the mesh through
+    ``make_serve_step(cfg, make_ctx(mesh, cfg))`` with its defaults (the
+    cache laid out by ``cache_specs``; where the ``model`` axis splits its
+    positions, the split-K route).  The mesh run is fed the no-mesh run's
+    tokens, so each step's logits compare; it reports its own argmax
+    tokens.  Each run's kernel launches are counted from just before its
+    prefill to just after its last token.  Rank 0 returns both runs'
+    metrics, masters, tokens, logits and times; every rank checks that its
+    masters, ``m`` and ``v`` are its ``state_specs`` slice.
+    ``s["dtype"]``, where given, replaces the preset's compute dtype."""
     import dataclasses
 
     import torch
@@ -2283,6 +2299,7 @@ def _mesh_rank(mesh, s: dict) -> dict:
     from repro_torch.optim.optimizers import tree_leaves, tree_map
     from repro_torch.sharding.specs import (
         distribute,
+        from_shards,
         local_offset,
         spec_leaves,
         spec_placements,
@@ -2304,6 +2321,14 @@ def _mesh_rank(mesh, s: dict) -> dict:
 
     def layout(ctx, x, *names):
         return distribute_tensor(x, mesh, spec_placements(mesh, ctx.spec(*names)))
+
+    def own_shard(ctx, x, *names):
+        """``x`` (the same on every rank) as a DTensor laid out by ``names``:
+        each rank keeps its slice, nothing moves."""
+        placements = spec_placements(mesh, ctx.spec(*names))
+        shape, off = local_offset(x.shape, mesh, placements)
+        return from_shards(x[tuple(slice(o, o + n) for o, n in zip(off, shape))], mesh,
+                           placements, x.shape)
 
     # training, without a mesh and then on it, from the same state
     opt = opt_mod.adamw(s["lr"])
@@ -2350,39 +2375,58 @@ def _mesh_rank(mesh, s: dict) -> dict:
         torch.cuda.empty_cache()
     out["train"] = runs
 
-    if s["decode"]:
-        bsz, prompt_len, gen = MESH_DECODE
-        params = transformer.init_params(cfg, 0, dev)
-        gen_ = torch.Generator(device="cpu").manual_seed(2)
-        prompt = torch.randint(0, cfg.vocab_size, (bsz, prompt_len), generator=gen_,
-                               dtype=torch.int32).to(dev)
-        dec = {}
-        for tag, ctx in (("no_mesh", unsharded_ctx()), ("mesh", mctx)):
-            p, tok = params, prompt
-            if ctx.mesh is not None:
-                p = distribute(params, transformer.param_specs(params, cfg, ctx, zero1=False),
-                               mesh)
-                tok = layout(ctx, prompt, "batch", None)
-            serve_step = make_serve_step(cfg, ctx, use_kernels=True)
-            ops.reset_launch_counts()
-            t0 = time.perf_counter()
-            _, cache = transformer.prefill(p, cfg, {"tokens": tok}, prompt_len + gen, ctx)
-            prefill_s = sync_s(t0)
-            cur, tokens = tok[:, -1:], []
-            t0 = time.perf_counter()
-            for i in range(gen):
-                cur, _, cache = serve_step(p, cache, cur, prompt_len + i - 1)
-                tokens.append(cur)
-            decode_s = sync_s(t0)
-            got = torch.cat(tokens, dim=1)
-            if ctx.mesh is not None:
-                got = got.full_tensor()
-            dec[tag] = {"tokens": got.cpu(), "prefill_s": prefill_s,
-                        "ms_per_token": 1e3 * decode_s / gen,
-                        "flash_decode": ops.launch_counts()["flash_decode"]}
-            del cache, p
-        out["decode"] = dec
+    bsz, prompt_len, gen = MESH_DECODE
+    params = transformer.init_params(cfg, 0, dev)
+    gen_ = torch.Generator(device="cpu").manual_seed(2)
+    prompt = torch.randint(0, cfg.vocab_size, (bsz, prompt_len), generator=gen_,
+                           dtype=torch.int32).to(dev)
+    dec = {}
+    for tag, ctx in (("no_mesh", unsharded_ctx()), ("mesh", mctx)):
+        p, tok = params, prompt
+        if ctx.mesh is not None:
+            p = distribute(params, transformer.param_specs(params, cfg, ctx, zero1=False),
+                           mesh)
+            tok = own_shard(ctx, prompt, "batch", None)
+        serve_step = make_serve_step(cfg, ctx)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, cache = transformer.prefill(p, cfg, {"tokens": tok}, prompt_len + gen, ctx)
+        prefill_s = sync_s(t0)
+        cur, tokens, logits = tok[:, -1:], [], []
+        t0 = time.perf_counter()
+        for i in range(gen):
+            if ctx.mesh is not None and i:  # fed the no-mesh run's token
+                cur = own_shard(ctx, fed[:, i - 1:i], "batch", None)
+            cur, lg, cache = serve_step(p, cache, cur, prompt_len + i - 1)
+            tokens.append(cur)
+            logits.append(lg if ctx.mesh is None else lg.full_tensor())
+        decode_s = sync_s(t0)
+        counts = ops.launch_counts()
+        got = torch.cat(tokens, dim=1)
+        lgs = torch.stack(logits)[:, :, 0, :cfg.vocab_size]
+        if ctx.mesh is not None:
+            got = got.full_tensor()
+        else:
+            fed = got
+        dec[tag] = {"tokens": got.cpu(), "prefill_s": prefill_s,
+                    "logits": lgs.float().cpu() if out["rank"] == 0 else None,
+                    "ms_per_token": 1e3 * decode_s / gen,
+                    "flash_decode": counts["flash_decode"],
+                    "flash_decode_merge": counts["flash_decode_merge"]}
+        del cache, p
+    out["decode"] = dec
     return out
+
+
+def _decode_compare(torch, dec: dict) -> dict:
+    """The mesh decode against the no-mesh decode it was fed by: its own
+    argmax tokens equal, and each step's logits' largest difference over
+    the no-mesh logits' largest magnitude."""
+    a, b = dec["mesh"], dec["no_mesh"]
+    return {"tokens_equal": bool(torch.equal(a["tokens"], b["tokens"])),
+            "tokens_equal_share": float((a["tokens"] == b["tokens"]).double().mean()),
+            "logits_rel_max": float(torch.max(torch.abs(a["logits"] - b["logits"])))
+                              / float(torch.max(torch.abs(b["logits"])))}
 
 
 def _mesh_compare(torch, runs: dict, atol: float = MESH_MASTER_ATOL) -> dict:
@@ -2419,7 +2463,7 @@ def mesh_rules(torch, card: str) -> dict:
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     try:
-        out = spawn_ranks(1, _mesh_rank, {"arch": MESH_ARCH, "lr": TRAIN_LR, "decode": True},
+        out = spawn_ranks(1, _mesh_rank, {"arch": MESH_ARCH, "lr": TRAIN_LR},
                           backend="nccl", device="cuda:0", timeout_s=MESH_LIMIT_S,
                           mesh_shape=(1, 1), mesh_dim_names=("data", "model"))
     except RankError as err:
@@ -2428,6 +2472,7 @@ def mesh_rules(torch, card: str) -> dict:
         raise SmokeFailure("mesh_rules: the NCCL rank failed") from err
     runs, dec = out["train"], out["decode"]
     cmp = _mesh_compare(torch, runs)
+    dcmp = _decode_compare(torch, dec)
     cfg = get_config(MESH_ARCH)
     want = MESH_DECODE[2] * cfg.num_repeats * sum(
         1 for t in cfg.pattern if t.mixer in ("global", "local"))
@@ -2441,8 +2486,7 @@ def mesh_rules(torch, card: str) -> dict:
             "peak_gb": {tag: r["peak_gb"] for tag, r in runs.items()},
             "decode": {"batch": MESH_DECODE[0], "prompt": MESH_DECODE[1],
                        "tokens": MESH_DECODE[2],
-                       "tokens_equal": bool(torch.equal(dec["mesh"]["tokens"],
-                                                        dec["no_mesh"]["tokens"])),
+                       **dcmp,
                        "flash_decode": {tag: d["flash_decode"] for tag, d in dec.items()},
                        "want_launches": want,
                        "ms_per_token": {tag: d["ms_per_token"] for tag, d in dec.items()},
@@ -2455,9 +2499,190 @@ def mesh_rules(torch, card: str) -> dict:
     require(runs["mesh"]["leaves_checked"] == len(tree_leaves(runs["no_mesh"]["params"])) * 3 + 2,
             f"mesh_rules: {runs['mesh']['leaves_checked']} leaves checked")
     require(line["decode"]["tokens_equal"], "mesh_rules: the mesh's tokens differ")
-    require(all(d["flash_decode"] == want for d in dec.values()),
-            f"mesh_rules: flash_decode launches {line['decode']['flash_decode']}, want {want}")
+    require(all(d["flash_decode"] == want and d["flash_decode_merge"] == 0
+                for d in dec.values()),
+            f"mesh_rules: flash_decode launches {line['decode']['flash_decode']}, want {want} "
+            f"(and no merge)")
     return line
+
+
+# ---------------------------------------------------------------------------
+# Slice 16: split-K of flash_decode across ranks
+# ---------------------------------------------------------------------------
+
+SPLITK_QWEN = ((1, (2, 4, 8)), (4, (2, 4, 8)))  # (B, the position shards R)
+SPLITK_GEMMA_R = 4  # gemma2-9b's window: three of four shards before its start
+SPLITK_LINE = "qwen3-14b B = 1, R = 8"  # the shape the kernels line reports
+
+
+def shard_bounds(s: int, r: int) -> list[int]:
+    """Where DTensor splits ``s`` positions over ``r`` ranks (``torch.chunk``:
+    ``ceil(s / r)`` a rank, the last ones short or empty)."""
+    c = -(-s // r)
+    return [min(i * c, s) for i in range(r + 1)]
+
+
+def splitk_check(torch, label, q, k, v, length: int, r: int, flush, softcap=None,
+                 window=None, unsplit_ms=None) -> dict:
+    """q [B, Hkv, G, Dh], k/v [B, S, Hkv, Dh] on the card, the positions cut
+    into ``r`` shards as DTensor cuts them: ``r`` ranks played in this
+    process (``play_ranks``), each running the mesh route's own
+    ``attention.split_k_decode`` on its shard at its offset, the ranks'
+    partials gathered in rank order and merged on every rank.  Every rank's
+    output bitwise the same, against the unsplit kernel and the plain
+    versions within ``FLASH_RTOL * max|v[start:length]|``, bitwise across
+    two runs, launches against their closed form (one a shard that meets
+    ``[start, length)``, one merge a rank); device ms of a rank's partials
+    (the shard with the most rows, cold L2), the merge (warm: the partials
+    were just gathered), the unsplit kernel (cold; ``unsplit_ms`` where it
+    was timed on these inputs already) and the plain versions.  Returns its
+    line."""
+    from repro_torch.dist.launch import play_ranks
+    from repro_torch.kernels import flash_decode as decode_mod
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import split_k_decode
+
+    b, hkv, g, dh = q.shape
+    opts = {"scale": dh ** -0.5, "softcap": softcap, "window": window}
+    bounds = shard_bounds(k.shape[1], r)
+    start = decode_mod.window_start(length, window)
+    shards = [(lo, hi, k[:, lo:hi], v[:, lo:hi]) for lo, hi in zip(bounds, bounds[1:])]
+    rows = [max(0, min(hi, length) - max(lo, start)) for lo, hi, _, _ in shards]
+
+    def rank(i, gather):
+        lo, _, ks, vs = shards[i]
+        return split_k_decode(q, ks, vs, offset=lo, length=length, gather=gather, **opts)
+
+    def split():
+        outs = play_ranks(r, rank)
+        require(all(torch.equal(o, outs[0]) for o in outs[1:]),
+                f"decode_splitk {label}: the ranks' merged outputs differ")
+        return outs[0]
+
+    def partials(i):
+        lo, _, ks, vs = shards[i]
+        return ops.decode_attention_partials(q, ks, vs, offset=lo, length=length, **opts)
+
+    def plain_partials(i):
+        lo, hi, ks, vs = shards[i]
+        n = hi - lo
+        return decode_mod.flash_decode_partials_plain(
+            q, ks, vs, min(max(start - lo, 0), n), min(max(length - lo, 0), n), opts["scale"],
+            softcap=softcap)
+
+    def stacked(parts):
+        return tuple(torch.stack(x) for x in zip(*parts))
+
+    ops.reset_launch_counts()
+    got = split()
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    want_launches = expected_launches(ops, flash_decode=sum(n > 0 for n in rows),
+                                      flash_decode_merge=r)
+    again = split()
+    whole = decode_mod.flash_decode(q, k, v, length, opts["scale"], softcap=softcap,
+                                    window=window)
+    parts = stacked([plain_partials(i) for i in range(r)])
+    plain = decode_mod.flash_decode_merge_plain(*parts)
+    tol = FLASH_RTOL * float(torch.max(torch.abs(v[:, start:length].float())))
+    err_whole = float(torch.max(torch.abs(got - whole)))
+    err_plain = float(torch.max(torch.abs(got - plain)))
+    busiest = max(range(r), key=lambda i: rows[i])
+    kernel_parts = stacked([partials(i) for i in range(r)])
+    elt, part_bytes = q.element_size(), b * hkv * g * (dh + 2) * 4
+    p_ms, p_by = bound_ms(2 * b * rows[busiest] * hkv * dh * elt + b * hkv * g * dh * elt
+                          + part_bytes, 4.0 * b * hkv * g * rows[busiest] * dh)
+    m_ms, m_by = bound_ms(r * part_bytes + b * hkv * g * dh * 4, r * b * hkv * g * (2.0 * dh + 4))
+    line = {"phase": "decode_splitk", "shape": label, "B": b, "Hkv": hkv, "group": g, "Dh": dh,
+            "dtype": str(q.dtype).split(".")[1], "S": k.shape[1], "length": length,
+            "softcap": softcap, "window": window, "R": r, "shards": bounds,
+            "rows_in_range": rows, "launches": {k_: n for k_, n in launches.items() if n},
+            "expected_launches": {k_: n for k_, n in want_launches.items() if n},
+            "bitwise_repeat": bool(torch.equal(got, again)),
+            "max_abs_err_vs_unsplit": err_whole, "max_abs_err_vs_plain": err_plain,
+            "max_err_over_tol": max(err_whole, err_plain) / tol,
+            "tolerance": f"|d| <= {FLASH_RTOL:g} * max|v[start:length]|",
+            "gathered_bytes_per_rank": part_bytes,
+            "partials_ms": device_ms(torch, lambda: partials(busiest), 50, flush),
+            "partials_rows": rows[busiest], "partials_bound_ms": p_ms, "partials_bound_by": p_by,
+            "partials_plain_ms": device_ms(torch, lambda: plain_partials(busiest), 5, flush),
+            "merge_ms": device_ms(torch, lambda: ops.decode_attention_merge(*kernel_parts), 100),
+            "merge_bound_ms": m_ms, "merge_bound_by": m_by,
+            "merge_plain_ms": device_ms(torch,
+                                        lambda: decode_mod.flash_decode_merge_plain(*kernel_parts),
+                                        20),
+            "unsplit_ms": unsplit_ms if unsplit_ms is not None else device_ms(
+                torch, lambda: decode_mod.flash_decode(q, k, v, length, opts["scale"],
+                                                       softcap=softcap, window=window), 50, flush),
+            "l2": "partials and unsplit cold, merge warm"}
+    emit(line)
+    require(launches == want_launches, f"decode_splitk {label}: launches {line['launches']}")
+    require(line["bitwise_repeat"], f"decode_splitk {label}: not bitwise across two runs")
+    require(err_whole <= tol and err_plain <= tol, f"decode_splitk {label}: {line}")
+    return line
+
+
+def decode_splitk(torch, card: str) -> dict:
+    """Split-K of ``flash_decode`` across ranks (slice 16), on one card: the
+    ranks' work of a decode step at one attention layer, the ranks played
+    as threads running the mesh route's own ``split_k_decode``
+    (:func:`splitk_check`), at qwen3-14b's
+    decode shapes (Hkv 8, G 5, Dh 128, bf16) over 32,768 positions, B in
+    {1, 4}, R in {2, 4, 8}, and gemma2-9b's (Dh 256, softcap 50, window
+    4,096) over R = 4, where three shards lie wholly before the window (no
+    launch, weight 0).  The decode through the entry point on a mesh whose
+    ``model`` axis splits the cache needs two ranks: NCCL refuses two ranks
+    of one group on one card, and gloo's all-gather under DTensor on CUDA
+    tensors crashes in torch 2.11 (``full_tensor`` segfaults in
+    ``wait_tensor``; plain gloo collectives work), so that run is
+    ``tools/mesh_check.py --cards 4`` (four NCCL ranks on a (2, 2) mesh).
+    Returns the rows and the launches of all of them."""
+    from repro_torch.configs import INPUT_SHAPES, get_config
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda", 0)
+    l2_src = torch.zeros(64 * 2**20 // 4, dtype=torch.float32, device=dev)
+    l2_dst = torch.empty_like(l2_src)
+
+    def flush():
+        l2_dst.copy_(l2_src)
+
+    gen_s = torch.Generator(dev)
+    gen_s.manual_seed(SEED)
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen_s, device=dev).to(torch.bfloat16)
+
+    rows = {}
+    long_ = INPUT_SHAPES["decode_32k"].seq_len
+    qwen = get_config("qwen3-14b")
+    hkv, g, dh = qwen.num_kv_heads, qwen.num_heads // qwen.num_kv_heads, qwen.head_dim
+    for b, rs in SPLITK_QWEN:
+        q = randn((b, hkv, g, dh))
+        k, v = (randn((b, long_ + 16, hkv, dh)) for _ in range(2))
+        unsplit = None
+        for r in rs:
+            label = f"qwen3-14b B = {b}, R = {r}"
+            rows[label] = splitk_check(torch, label, q, k, v, long_, r, flush, unsplit_ms=unsplit)
+            unsplit = rows[label]["unsplit_ms"]
+        del q, k, v
+    gemma = get_config("gemma2-9b")
+    hkv, g, dh = gemma.num_kv_heads, gemma.num_heads // gemma.num_kv_heads, gemma.head_dim
+    q = randn((1, hkv, g, dh)) * 16  # scores of order the cap
+    k, v = (randn((1, long_ + 16, hkv, dh)) for _ in range(2))
+    label = f"gemma2-9b B = 1, R = {SPLITK_GEMMA_R}, softcap, window"
+    rows[label] = splitk_check(torch, label, q, k, v, long_, SPLITK_GEMMA_R, flush,
+                               softcap=gemma.attn_softcap, window=gemma.sliding_window)
+    require(sum(n > 0 for n in rows[label]["rows_in_range"]) == 1,
+            f"decode_splitk: gemma2's window should leave one live shard: {rows[label]}")
+    del q, k, v, l2_src, l2_dst
+    torch.cuda.empty_cache()
+    launches = {name: sum(r_["launches"].get(name, 0) for r_ in rows.values())
+                for name in ("flash_decode", "flash_decode_merge")}
+    emit({"phase": "decode_splitk_time", "rows": len(rows), "launches": launches,
+          "total_s": time.perf_counter() - t_phase, "card": card})
+    return {"rows": rows, "launches": launches}
 
 
 def dryrun_start(out_dir: str):
@@ -4469,9 +4694,16 @@ def run() -> dict:
     # train step and the decode against the no-mesh runs; then the
     # dry-run's combos, traced on the host since the card line.
     mesh_rules(torch, card)
+
+    # 23. Split-K of flash_decode across ranks: each rank's partials and
+    # the merge against the unsplit kernel, at qwen3-14b's and gemma2-9b's
+    # decode shapes; then the dry-run's combos, traced on the host since
+    # the card line.
+    splitk = decode_splitk(torch, card)
+    decode_by_path["decode_splitk (partials)"] = splitk["launches"]["flash_decode"]
     dryrun_collect(dryrun)
 
-    # 23. The kernels line.  Launches: sparse_margin, logistic_grad,
+    # 24. The kernels line.  Launches: sparse_margin, logistic_grad,
     # block_scatter and prox_update from the dense main path (sparse_margin's,
     # logistic_grad's and lazy_catchup's times at one step over all 8
     # blocks, lazy_flush's at one epoch's flush, their launches on the path), the
@@ -4617,7 +4849,32 @@ def run() -> dict:
                                                   "library_ms", "library_max_abs_err",
                                                   "rows_read")}
                     for label, row_ in decode_rows.items()
-                    if label.startswith("gemma2-9b") and "kernel_ms" in row_}},
+                    if label.startswith("gemma2-9b") and "kernel_ms" in row_},
+         "split_k_partials": {label: {f: row_[f] for f in (
+             "partials_ms", "partials_rows", "partials_bound_ms", "partials_plain_ms",
+             "unsplit_ms", "max_abs_err_vs_unsplit", "launches")}
+             for label, row_ in splitk["rows"].items()}},
+        {"name": "flash_decode_merge", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+         "replaces": "src/repro/models/attention.py:265",
+         "tpu_kernel": False,
+         "note": "the merge of split-K across ranks: the reference's decode reduces max, sum "
+                 "and the weighted sum over the cache's position axis split over model, which "
+                 "GSPMD makes cross-device reductions (no pallas_call); flash_decode_combine_"
+                 "kernel over the ranks' gathered partials; launches from decode_splitk's "
+                 "played ranks, one a rank (a mesh decode needs two cards: "
+                 "tools/mesh_check.py --cards 4)",
+         "launches": splitk["launches"]["flash_decode_merge"],
+         "launches_by_path": {"decode_splitk": splitk["launches"]["flash_decode_merge"]},
+         "max_abs_err": max(r_["max_abs_err_vs_plain"] for r_ in splitk["rows"].values()),
+         "ms": splitk["rows"][SPLITK_LINE]["merge_ms"],
+         "plain_ms": splitk["rows"][SPLITK_LINE]["merge_plain_ms"],
+         "bound_ms": splitk["rows"][SPLITK_LINE]["merge_bound_ms"],
+         "bound_by": splitk["rows"][SPLITK_LINE]["merge_bound_by"], "library_ms": None,
+         "by_shape": {label: {f: row_[f] for f in ("merge_ms", "merge_bound_ms",
+                                                   "merge_plain_ms", "R")}
+                      for label, row_ in splitk["rows"].items()},
+         "shape": SPLITK_LINE + " (Hkv 8, group 5, Dh 128: 8 partials of 20,800 B)"},
     ]})
     print(card, flush=True)
     return {"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

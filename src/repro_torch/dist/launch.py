@@ -1,4 +1,5 @@
-"""Start q ranks of one SPMD program on one host: :func:`spawn_ranks`.
+"""Start q ranks of one SPMD program on one host: :func:`spawn_ranks`,
+or play them as threads of one process: :func:`play_ranks`.
 
 The port's own launcher (the reference needs none: JAX drives every
 device of a mesh from one process, while PyTorch runs one process per
@@ -176,3 +177,60 @@ def spawn_ranks(
                 os.remove(path)
         if own_dir:
             shutil.rmtree(workdir, ignore_errors=True)
+
+
+def play_ranks(q: int, fn: Callable, timeout_s: float = 120.0) -> list:
+    """Run ``fn(rank, gather)`` for q ranks played in this process, a
+    thread each, and return their results in rank order.
+
+    ``gather(x)`` is an all-gather among them: every rank's plain tensor
+    ``x`` stacked in rank order along a new leading axis, as
+    ``specs.gather_over`` gives it across processes; each rank calls it the
+    same number of times.  The ranks take turns (one runs between two
+    gathers while the others wait), so the launch counters and the card's
+    stream see one rank at a time.  This plays a mesh's collectives on one
+    card, where NCCL refuses two ranks.  The first rank to raise stops the
+    others, and its exception is raised here; after ``timeout_s`` seconds
+    in one gather every rank stops and :class:`RankError` is raised.
+    """
+    import threading
+
+    turn = threading.Lock()
+    barrier = threading.Barrier(q, timeout=timeout_s)
+    rows: dict[int, list] = {}
+    results: list = [None] * q
+    errors: list = [None] * q
+
+    def rank_main(rank: int) -> None:
+        calls = 0
+
+        def gather(x: torch.Tensor) -> torch.Tensor:
+            nonlocal calls
+            row = rows.setdefault(calls, [None] * q)
+            calls += 1
+            row[rank] = x
+            turn.release()
+            try:
+                barrier.wait()
+            finally:
+                turn.acquire()
+            return torch.stack(row)
+
+        with turn:
+            try:
+                results[rank] = fn(rank, gather)
+            except BaseException as err:  # handed to the caller below
+                errors[rank] = err
+                barrier.abort()
+
+    threads = [threading.Thread(target=rank_main, args=(r,), daemon=True) for r in range(q)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    first = [e for e in errors if e is not None and not isinstance(e, threading.BrokenBarrierError)]
+    if first:
+        raise first[0]
+    if any(errors):
+        raise RankError(f"{q} played ranks: a gather did not complete within {timeout_s:g} s")
+    return results

@@ -75,15 +75,19 @@ _SIGNATURES = (
     ("repro_logistic_snapshot_coef", _I, (_P, _P, _P, _I, _F, _P)),
     ("repro_svrg_update", _I, (_P, _P, _P, _P, _I, _F, _F, _P)),
     ("repro_fused_update", _I, (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P)),
-    # Decode attention: q, k, v, the three split partials, out; B, Hkv,
-    # G, Dh; the k/v batch stride (64-bit); the window's start, length,
-    # rows per split, splits; scale, softcap (0: none); the FLOAT_CODES
-    # code; the stream.
+    # Decode attention: q, k, v, the three split partials, out, the
+    # partials mode's m and l (or NULLs); B, Hkv, G, Dh; the k/v batch
+    # stride (64-bit); the window's start, length, rows per split, splits;
+    # scale, softcap (0: none); the FLOAT_CODES code; the stream.
     (
         "repro_flash_decode",
         _I,
-        (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _I, _I, _F, _F, _I, _P),
+        (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _I, _I, _F, _F, _I,
+         _P),
     ),
+    # The merge across ranks: m, l, acc (rank-major), out; B * Hkv, G, Dh,
+    # R; the stream.
+    ("repro_flash_decode_merge", _I, (_P, _P, _P, _P, _I, _I, _I, _I, _P)),
 )
 MAX_BLOCKS = 128  # touched.cuh's kMaxBlocks: the blocks a BlockRows holds
 

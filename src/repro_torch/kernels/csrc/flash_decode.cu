@@ -68,14 +68,30 @@
 // template flag (CAP) of both split passes: without it they compile to the
 // code they were before the flag existed.
 //
+// Split-K across ranks (a KV cache split by position over the mesh's
+// `model` axis; the reference's decode reduces max, sum and the weighted
+// sum over that split axis and GSPMD makes them cross-device reductions,
+// repro/models/attention.py:254-269).  In partials mode (m_out and l_out
+// given) the same passes run over the rank's own rows [start, length), in
+// its local positions, and leave the rank's un-normalised (m, l, acc)
+// instead of acc / max(l, 1e-30): the combine pass writes it, or with one
+// split the split pass itself.  The ranks gather their partials (the
+// wrapper's business, B * Hkv * G * (Dh + 2) floats a rank) and
+// repro_flash_decode_merge combines them in rank order with the combine
+// kernel, reading the gathered [R, B * Hkv, G(, Dh)] in place through its
+// strides: one launch, bound by the R partials' bytes.  The partials' bound
+// is the bytes of the rank's valid rows, as the whole kernel's.
+//
 // Preconditions (checked by the wrapper): q, k, v of one dtype (0 =
 // float32, 1 = bfloat16) on the current device, q and out contiguous, k
 // and v [S, Hkv, Dh] contiguous per request with the same batch stride, k,
 // v and their batch stride 16-byte aligned.  Returns cudaErrorInvalidValue
 // unless Dh is 32, 64, 128 or 256, 1 <= G <= 16, G * Dh <= 2048, 0 <=
 // start < length, 1 <= n_split <= 65535, (n_split - 1) * rows_per_split <
-// length - start and softcap > 0 when given (softcap <= 0 means none); else
-// cudaGetLastError() after the launches.
+// length - start, m_out and l_out both given or both NULL, and softcap > 0
+// when given (softcap <= 0 means none); else cudaGetLastError() after the
+// launches.  The merge returns cudaErrorInvalidValue unless Dh is one of
+// those, 1 <= G <= 16, G * Dh <= 2048 and R >= 1.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -168,13 +184,13 @@ __device__ __forceinline__ void issue_tile(unsigned char* st, const T* kb, const
 
 // The block's warps left (m, l, acc) per head in wm / wl [kWarps][group] and
 // wacc [kWarps][group][DH]: combine them in warp order into the split's
-// partial, or, with one split, into out.
+// partial, or, with one split and no partials asked for, into out.
 template <int DH>
 __device__ __forceinline__ void finish_split(const float* wm, const float* wl,
                                              const float* wacc, float* m_part,
                                              float* l_part, float* acc_part,
                                              float* out, int group, int bj,
-                                             int split) {
+                                             int split, int partial) {
   for (int i = threadIdx.x; i < group * DH; i += kThreads) {
     const int g = i / DH;
     const int col = i - g * DH;
@@ -188,7 +204,7 @@ __device__ __forceinline__ void finish_split(const float* wm, const float* wl,
       lsum = fmaf(wl[w * group + g], c, lsum);
       asum = fmaf(wacc[(w * group + g) * DH + col], c, asum);
     }
-    if (gridDim.y == 1) {
+    if (gridDim.y == 1 && !partial) {
       out[(static_cast<size_t>(bj) * group + g) * DH + col] = asum / fmaxf(lsum, 1e-30f);
     } else {
       const size_t o = (static_cast<size_t>(bj) * gridDim.y + split) * group + g;
@@ -209,7 +225,8 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           float* __restrict__ acc_part,
                           float* __restrict__ out, int hkv, int group,
                           long long kv_bstride, int start, int length,
-                          int rows_per_split, float scale, float softcap) {
+                          int rows_per_split, float scale, float softcap,
+                          int partial) {
   using G = Geo<T, DH>;
   constexpr int RT = G::RT;
   constexpr int P = 32 / RT;           // lanes per row in the score phase
@@ -380,7 +397,8 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
   __syncthreads();
-  finish_split<DH>(wm, wl, wacc, m_part, l_part, acc_part, out, group, bj, split);
+  finish_split<DH>(wm, wl, wacc, m_part, l_part, acc_part, out, group, bj, split,
+                   partial);
 }
 
 __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
@@ -447,7 +465,7 @@ flash_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
                         float* __restrict__ acc_part, float* __restrict__ out,
                         int hkv, int group, long long kv_bstride, int start,
                         int length, int rows_per_split, float scale,
-                        float softcap) {
+                        float softcap, int partial) {
   using G = Geo<__nv_bfloat16, DH>;
   constexpr int RT = G::RT;
   static_assert(RT == 16, "one m16n8k16 k-step of P.V per tile");
@@ -603,29 +621,38 @@ flash_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
   __syncthreads();
-  finish_split<DH>(wm, wl, wacc, m_part, l_part, acc_part, out, group, bj, split);
+  finish_split<DH>(wm, wl, wacc, m_part, l_part, acc_part, out, group, bj, split,
+                   partial);
 }
 
 // One block per (b, j, g), one thread per column of Dh: the splits'
 // (m, l, acc) combined in split order, then / max(l, 1e-30), as the
-// reference's decode divides.  The splits' m and l are read a chunk of Dh
-// at a time into shared memory (one load each, in parallel), so the walk
+// reference's decode divides; or, with m_out given, the combined
+// un-normalised (m, l, acc) written to m_out, l_out and out (a rank's
+// partial for the merge across ranks).  Split s of pair bj sits at
+// bj * bj_stride + s * split_stride (+ g; times Dh for acc): the split
+// pass's [B * Hkv, n_split, G] and the ranks' gathered [R, B * Hkv, G]
+// are both read in place.  The splits' m and l are read a chunk of Dh at
+// a time into shared memory (one load each, in parallel), so the walk
 // over the splits waits on memory once a chunk, not once a split.
 __global__ void flash_decode_combine_kernel(const float* __restrict__ m_part,
                                             const float* __restrict__ l_part,
                                             const float* __restrict__ acc_part,
-                                            float* __restrict__ out, int group,
-                                            int dh, int n_split) {
+                                            float* __restrict__ out,
+                                            float* __restrict__ m_out,
+                                            float* __restrict__ l_out, int group,
+                                            int dh, int n_split, long long bj_stride,
+                                            long long split_stride) {
   __shared__ float red[256];
   __shared__ float c_s[256];
   __shared__ float l_s[256];
   const int bj = blockIdx.x / group;
   const int g = blockIdx.x - bj * group;
   const int col = threadIdx.x;
-  const size_t base = static_cast<size_t>(bj) * n_split * group + g;
+  const size_t base = static_cast<size_t>(bj) * bj_stride + g;
   float mx = kMaskValue;
   for (int s = col; s < n_split; s += dh) {
-    mx = fmaxf(mx, m_part[base + static_cast<size_t>(s) * group]);
+    mx = fmaxf(mx, m_part[base + static_cast<size_t>(s) * split_stride]);
   }
   red[col] = mx;
   __syncthreads();
@@ -639,20 +666,28 @@ __global__ void flash_decode_combine_kernel(const float* __restrict__ m_part,
     const int m = min(dh, n_split - s0);
     __syncthreads();
     if (col < m) {
-      const size_t o = base + static_cast<size_t>(s0 + col) * group;
+      const size_t o = base + static_cast<size_t>(s0 + col) * split_stride;
       c_s[col] = expf(m_part[o] - mx);
       l_s[col] = l_part[o];
     }
     __syncthreads();
 #pragma unroll 8
     for (int i = 0; i < m; ++i) {
-      const size_t o = base + static_cast<size_t>(s0 + i) * group;
+      const size_t o = base + static_cast<size_t>(s0 + i) * split_stride;
       lsum = fmaf(l_s[i], c_s[i], lsum);
       asum = fmaf(acc_part[o * dh + col], c_s[i], asum);
     }
   }
-  out[(static_cast<size_t>(bj) * group + g) * dh + col] =
-      asum / fmaxf(lsum, 1e-30f);
+  const size_t o = static_cast<size_t>(bj) * group + g;
+  if (m_out != nullptr) {
+    out[o * dh + col] = asum;
+    if (col == 0) {
+      m_out[o] = mx;
+      l_out[o] = lsum;
+    }
+  } else {
+    out[o * dh + col] = asum / fmaxf(lsum, 1e-30f);
+  }
 }
 
 struct Args {
@@ -667,6 +702,7 @@ struct Args {
   long long kv_bstride;
   int start, length, rows_per_split, n_split;
   float scale, softcap;
+  int partial;
   cudaStream_t stream;
 };
 
@@ -678,7 +714,7 @@ cudaError_t launch(K kernel, size_t smem, const Args& a) {
   kernel<<<dim3(a.batch_heads, a.n_split), kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       a.m_part, a.l_part, a.acc_part, a.out, a.hkv, a.group, a.kv_bstride, a.start,
-      a.length, a.rows_per_split, a.scale, a.softcap);
+      a.length, a.rows_per_split, a.scale, a.softcap, a.partial);
   return cudaGetLastError();
 }
 
@@ -721,27 +757,57 @@ bool args_ok(int group, int dh, int dtype) {
 
 }  // namespace
 
+// m_out and l_out NULL: out [B, Hkv, G, Dh] gets the attention.  Given
+// (partials mode), out gets the un-normalised acc and m_out / l_out
+// [B, Hkv, G] the max and the sum over [start, length): with n_split > 1
+// the combine pass writes them, with one split the split pass itself.
 extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
                                   float* m_part, float* l_part,
-                                  float* acc_part, float* out, int batch,
-                                  int hkv, int group, int dh,
-                                  long long kv_bstride, int start, int length,
-                                  int rows_per_split, int n_split, float scale,
-                                  float softcap, int dtype, void* stream) {
+                                  float* acc_part, float* out, float* m_out,
+                                  float* l_out, int batch, int hkv, int group,
+                                  int dh, long long kv_bstride, int start,
+                                  int length, int rows_per_split, int n_split,
+                                  float scale, float softcap, int dtype,
+                                  void* stream) {
+  const bool partial = m_out != nullptr;
   if (!args_ok(group, dh, dtype) || batch < 1 || hkv < 1 || start < 0 ||
       length <= start || rows_per_split < 1 || n_split < 1 || n_split > 65535 ||
-      static_cast<long long>(n_split - 1) * rows_per_split >= length - start) {
+      static_cast<long long>(n_split - 1) * rows_per_split >= length - start ||
+      partial != (l_out != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Args a{q, k, v, m_part, l_part, acc_part, out, batch * hkv, hkv, group,
-               kv_bstride, start, length, rows_per_split, n_split, scale, softcap,
-               static_cast<cudaStream_t>(stream)};
+  Args a{q, k, v, m_part, l_part, acc_part, out, batch * hkv, hkv, group,
+         kv_bstride, start, length, rows_per_split, n_split, scale, softcap,
+         partial ? 1 : 0, static_cast<cudaStream_t>(stream)};
+  if (partial && n_split == 1) {  // the split pass writes the rank's partial
+    a.m_part = m_out;
+    a.l_part = l_out;
+    a.acc_part = out;
+  }
   const cudaError_t err = dtype == 0 ? dispatch_cap<float>(a, dh)
                                      : dispatch_cap<__nv_bfloat16>(a, dh);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n_split > 1) {
     flash_decode_combine_kernel<<<a.batch_heads * group, dh, 0, a.stream>>>(
-        m_part, l_part, acc_part, out, group, dh, n_split);
+        m_part, l_part, acc_part, out, m_out, l_out, group, dh, n_split,
+        static_cast<long long>(n_split) * group, group);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The merge across ranks: m, l [R, B * Hkv, G] and acc [R, B * Hkv, G, Dh],
+// the ranks' partials in rank order, combined by flash_decode_combine_kernel
+// (rank order, / max(l, 1e-30)) into out [B * Hkv, G, Dh].  One launch.
+extern "C" int repro_flash_decode_merge(const float* m, const float* l,
+                                        const float* acc, float* out,
+                                        int batch_heads, int group, int dh,
+                                        int ranks, void* stream) {
+  if (!args_ok(group, dh, 0) || batch_heads < 1 || ranks < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  flash_decode_combine_kernel<<<batch_heads * group, dh, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      m, l, acc, out, nullptr, nullptr, group, dh, ranks, group,
+      static_cast<long long>(batch_heads) * group);
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,7 +5,8 @@ Port of ``repro.kernels.ops`` for the kernels of the FD-SVRG main path
 and the snapshot's margins, the step's catch-up and the snapshot
 scatter; a step's and a snapshot's loss coefficients), its lazy inner
 steps (the epoch-end flush over the whole width in one launch), the
-dense-layout step and LM decode attention.  On a CUDA tensor each
+dense-layout step and LM decode attention (with split-K across the ranks
+of a cache split by position).  On a CUDA tensor each
 wrapper launches its hand-written kernel (or raises);
 on a CPU tensor it takes the kernel's plain PyTorch version.  There is
 no fallback from one to the other.  The reference's TPU-only keywords
@@ -468,6 +469,54 @@ def decode_attention_batched(
     return _decode.flash_decode_plain(q, k, v, length, scale, softcap=softcap, window=window)
 
 
+def decode_attention_partials(
+    q: torch.Tensor,  # [B, Hkv, G, Dh], head h = j * G + g
+    k: torch.Tensor,  # [B, S_r, Hkv, Dh]: this rank's shard of the cache's positions
+    v: torch.Tensor,  # [B, S_r, Hkv, Dh]
+    *,
+    offset: int,  # the global position of the shard's first row
+    length: int,  # the global valid prefix, the same for the whole batch
+    scale: float | None = None,
+    softcap: float | None = None,
+    window: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:  # float32 m, l [B, Hkv, G]; acc
+    """One rank's share of a decode step's attention over a cache split by
+    position: its un-normalised ``(m, l, acc)`` over the global positions
+    ``[max(0, length - window), length)`` that its shard ``[offset, offset
+    + S_r)`` holds (the window's start reckoned in global positions, then
+    clamped to the shard).  The kernel in partials mode on the card (one
+    counted launch, none when the shard holds no such row), its plain
+    version on the CPU.  :func:`decode_attention_merge` combines the
+    ranks' partials."""
+    length, offset = int(length), int(offset)
+    if length < 1 or offset < 0:
+        raise ValueError(f"decode_attention_partials: length {length} (>= 1) and offset "
+                         f"{offset} (>= 0) not taken")
+    if window is not None and window < 1:
+        raise ValueError(f"decode_attention_partials: window {window} must be at least 1")
+    rows = k.shape[1]
+    start = min(max(_decode.window_start(length, window) - offset, 0), rows)
+    stop = min(max(length - offset, 0), rows)
+    scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
+    if _route(q, "flash_decode"):
+        return _decode.flash_decode_partials(q.contiguous(), k, v, start, stop, scale,
+                                             softcap=softcap)
+    return _decode.flash_decode_partials_plain(q, k, v, start, stop, scale, softcap=softcap)
+
+
+def decode_attention_merge(
+    m: torch.Tensor,  # float32 [R, B, Hkv, G], the ranks' partials in rank order
+    l: torch.Tensor,  # float32 [R, B, Hkv, G]
+    acc: torch.Tensor,  # float32 [R, B, Hkv, G, Dh]
+) -> torch.Tensor:  # float32 [B, Hkv, G, Dh]
+    """The ranks' partials combined in rank order and divided by ``max(l,
+    1e-30)``: the merge kernel (one counted launch) on the card, its plain
+    version on the CPU."""
+    if _route(m, "flash_decode_merge"):
+        return _decode.flash_decode_merge(m.contiguous(), l.contiguous(), acc.contiguous())
+    return _decode.flash_decode_merge_plain(m, l, acc)
+
+
 _COUNTED = (_scatter, _margin, _prox, _fused, _matvec, _logistic, _svrg, _decode)
 
 
@@ -483,12 +532,14 @@ def launch_counts() -> dict[str, int]:
         "logistic_grad": _logistic.launches,
         "svrg_update": _svrg.launches,
         "flash_decode": _decode.launches,
+        "flash_decode_merge": _decode.merge_launches,
     }
 
 
 def reset_launch_counts() -> None:
     for mod in _COUNTED:
         mod.launches = 0
+    _decode.merge_launches = 0
     for name in _lazy.launches:
         _lazy.launches[name] = 0
 
@@ -497,6 +548,8 @@ __all__ = [
     "block_scatter",
     "decode_attention",
     "decode_attention_batched",
+    "decode_attention_merge",
+    "decode_attention_partials",
     "fused_block_prox_update",
     "fused_block_update",
     "launch_counts",

@@ -9,8 +9,15 @@ so the ``[S, S]`` score matrix never materialises; decode keeps the cache
 The decode core goes through :func:`repro_torch.kernels.ops.decode_attention_batched`
 (``use_kernels=True``, the default): the ``flash_decode`` kernel on the
 card, with the attention logit softcap and the sliding window (gemma2's
-layers), its plain version on the CPU.  ``use_kernels=False`` takes the
-plain version on any device.  :func:`attention_decode` writes the new
+layers), its plain version on the CPU.  On a mesh whose ``model`` axis
+splits the cache's positions (``"seq_kv": "model"``, every production
+mesh) each rank runs the kernel over its own positions
+(``ops.decode_attention_partials``), the ranks gather their partial max,
+sum and weighted sum, and each merges them in rank order
+(``ops.decode_attention_merge``): split-K across ranks, where the
+reference leaves GSPMD to reduce over the split axis.
+``use_kernels=False`` takes the plain version on any device (under
+DTensor on a mesh).  :func:`attention_decode` writes the new
 token's k and v into the cache IN PLACE and returns the same dict (the
 reference returns a new cache).
 
@@ -23,6 +30,7 @@ only the key chunks its mask can reach).
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import torch
 
@@ -31,9 +39,11 @@ from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, init_rms_scale, normal, rms_norm, softcap
 from repro_torch.sharding.specs import (
     from_shards,
+    gather_over,
     is_dtensor,
     local_offset,
     only_dims,
+    split_axes,
     split_ways,
     to_shard,
     with_dim,
@@ -304,21 +314,61 @@ def _write_position(cache: torch.Tensor, pos: int, new: torch.Tensor) -> None:
         cache.to_local()[:, at : at + 1] = new
 
 
+def split_k_decode(
+    q: torch.Tensor,  # [b, Hkv, G, Dh]: this rank's requests
+    k: torch.Tensor,  # [b, S_r, Hkv, Dh]: its shard of the cache's positions
+    v: torch.Tensor,
+    *,
+    offset: int,  # the global position of the shard's first row
+    length: int,
+    scale: float,
+    softcap: float | None,
+    window: int | None,
+    gather: Callable[[torch.Tensor], torch.Tensor],
+) -> torch.Tensor:  # float32 [b, Hkv, G, Dh]
+    """One rank's decode attention over a cache split by position
+    (split-K across ranks): the kernel's partials over the global
+    positions its shard holds (``ops.decode_attention_partials``),
+    every rank's partials through ``gather`` (a plain tensor -> the
+    ranks' tensors in rank order along a new leading axis), merged in rank
+    order (``ops.decode_attention_merge``).  Every rank merges the same
+    partials, so every rank holds the same bits."""
+    parts = ops.decode_attention_partials(q, k, v, offset=offset, length=length, scale=scale,
+                                          softcap=softcap, window=window)
+    return ops.decode_attention_merge(*(gather(x) for x in parts))
+
+
 def _decode_local(qg, k, v, length: int, scale: float, cfg: AttnConfig) -> torch.Tensor:
-    """The ``flash_decode`` route on DTensors: the kernel runs on each
-    rank's local batch shard, which needs the cache's positions and heads
-    whole on every rank (a mesh whose ``model`` axis is 1).  Split-K of the
-    kernel across ranks is not written, so a split cache raises."""
+    """The ``flash_decode`` route on DTensors.  Each rank takes its batch
+    shard of ``qg`` (the heads whole).  Where the cache's positions are
+    whole on every rank (a mesh whose ``model`` axis is 1) the kernel runs
+    on the local cache.  Where they are split, :func:`split_k_decode` runs
+    on the rank's shard at its global offset, gathering over the mesh
+    dimensions that split the positions (rank order, major first).  A
+    cache split over heads, which ``cache_specs`` never lays out, raises."""
     mesh = k.device_mesh
-    if split_ways(k, 1) * split_ways(k, 2) > 1:
+    if split_ways(k, 2) > 1:
         raise ValueError(
-            "flash_decode on a mesh needs the KV cache's positions and heads on one rank "
-            f"(placements {tuple(k.placements)} over mesh {tuple(mesh.shape)}); "
-            "pass use_kernels=False for the plain decode under DTensor")
+            "flash_decode on a mesh needs the KV cache's heads whole on every rank "
+            f"(placements {tuple(k.placements)} over mesh {tuple(mesh.shape)}; cache_specs "
+            "never splits them); pass use_kernels=False for the plain decode under DTensor")
     batch = only_dims(k.placements, (0,))
-    out = ops.decode_attention_batched(
-        qg.redistribute(mesh, batch).to_local(), k.to_local(), v.to_local(), length=length,
-        scale=scale, softcap=cfg.attn_softcap, window=cfg.window)
+    q_local = qg.redistribute(mesh, batch).to_local()
+    opts = {"scale": scale, "softcap": cfg.attn_softcap, "window": cfg.window}
+    if split_ways(k, 1) == 1:
+        out = ops.decode_attention_batched(q_local, k.to_local(), v.to_local(), length=length,
+                                           **opts)
+        return from_shards(out, mesh, batch, qg.shape)
+    _, offset = local_offset(k.shape, mesh, k.placements)
+    axes = split_axes(k, 1)
+
+    def gather(x):
+        for name in reversed(axes):  # minor first, so the major axis ends up outermost
+            x = gather_over(x, mesh, name)
+        return x.flatten(0, len(axes) - 1)
+
+    out = split_k_decode(q_local, k.to_local(), v.to_local(), offset=offset[1], length=length,
+                         gather=gather, **opts)
     return from_shards(out, mesh, batch, qg.shape)
 
 

@@ -73,6 +73,7 @@ from repro_torch.sharding.specs import (
     local_offset,
     mesh_axes,
     spec_placements,
+    with_dim,
 )
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -609,16 +610,26 @@ def _zeros(shape: tuple, dtype, device, ctx: ShardingCtx, spec: PartitionSpec) -
 
 def _write_repeat(dst: torch.Tensor, r: int, src: torch.Tensor) -> None:
     """``dst[r, :, :n] = src`` for ``src`` of ``n`` positions along
-    dimension 1.  A DTensor's position axis may be split over ranks, so its
-    repeat ``r`` is written whole, ``src`` zero-padded to the cache's
-    length."""
+    dimension 1.  A DTensor's position axis may be split over ranks: where
+    ``src`` is shorter than the cache, each rank writes the positions of
+    its own shard (``src`` brought to the cache's layout with its
+    positions whole), as the decode writes its position."""
     n = src.shape[1]
     if not is_dtensor(dst):
         dst[r, :, :n] = src
         return
-    if n != dst.shape[2]:
-        src = F.pad(src, (0, 0) * (src.dim() - 2) + (0, dst.shape[2] - n))
-    dst[r].copy_(src)
+    if n == dst.shape[2]:
+        dst[r].copy_(src)
+        return
+    from torch.distributed.tensor import Replicate
+
+    view = dst[r]
+    mesh = view.device_mesh
+    local = src.redistribute(mesh, with_dim(view.placements, 1, Replicate())).to_local()
+    shape, offset = local_offset(view.shape, mesh, view.placements)
+    lo, hi = offset[1], min(offset[1] + shape[1], n)
+    if lo < hi:
+        view.to_local()[:, : hi - lo] = local[:, lo:hi]
 
 
 def decode_step(

@@ -230,6 +230,33 @@ def split_ways(x, dim: int) -> int:
     return n
 
 
+def split_axes(x, dim: int) -> tuple[str, ...]:
+    """The names of the mesh dimensions that split dimension ``dim`` of
+    the DTensor ``x``, in mesh order (major first)."""
+    from torch.distributed.tensor import Shard
+
+    names = x.device_mesh.mesh_dim_names
+    return tuple(names[i] for i, p in enumerate(x.placements) if p == Shard(dim))
+
+
+def gather_over(x: torch.Tensor, mesh, name: str) -> torch.Tensor:
+    """The plain tensor ``x`` of every rank along the mesh dimension
+    ``name``, stacked in rank order (the ranks' coordinates along
+    ``name``) along a new leading axis: ``[size of name, *x.shape]``, the
+    same on each of those ranks (one all-gather; ``x`` has one shape and
+    dtype on all of them)."""
+    import torch.distributed as dist
+
+    group = mesh.get_group(name)
+    if dist.get_rank(group) != mesh.get_local_rank(name):
+        raise ValueError(f"the group of mesh dimension {name!r} does not rank its members "
+                         f"by their coordinate")
+    n = mesh.size(mesh.mesh_dim_names.index(name))
+    out = torch.empty((n * x.numel(),), dtype=x.dtype, device=x.device)
+    dist.all_gather_into_tensor(out, x.contiguous().reshape(-1), group=group)  # gloo: flat only
+    return out.view(n, *x.shape)
+
+
 def local_offset(shape, mesh, placements: Sequence) -> tuple[tuple, tuple]:
     """This rank's piece of a tensor of global ``shape`` laid out by
     ``placements`` on ``mesh``: (its shape, its offset in each dimension),

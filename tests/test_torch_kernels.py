@@ -216,18 +216,19 @@ def test_launch_counters_reset():
     fused_mod.launches, matvec_mod.launches = 8, 9
     logistic_mod.launches, svrg_mod.launches = 10, 11
     decode_mod.launches, scatter_mod.launches = 12, 13
+    decode_mod.merge_launches = 14
     assert ops.launch_counts() == {
         "sparse_margin": 5, "block_scatter": 13, "prox_update": 7, "lazy_catchup": 1,
         "lazy_touch_update": 2, "lazy_flush": 3, "lazy_proba_update": 4,
         "fused_update": 8, "fd_matvec": 9, "logistic_grad": 10, "svrg_update": 11,
-        "flash_decode": 12,
+        "flash_decode": 12, "flash_decode_merge": 14,
     }
     ops.reset_launch_counts()
     assert ops.launch_counts() == {
         "sparse_margin": 0, "block_scatter": 0, "prox_update": 0, "lazy_catchup": 0,
         "lazy_touch_update": 0, "lazy_flush": 0, "lazy_proba_update": 0,
         "fused_update": 0, "fd_matvec": 0, "logistic_grad": 0, "svrg_update": 0,
-        "flash_decode": 0,
+        "flash_decode": 0, "flash_decode_merge": 0,
     }
 
 
@@ -243,7 +244,8 @@ def test_kernel_sources_declare_their_c_entry_points_and_origin():
                        "repro_lazy_touch_update", "repro_lazy_flush",
                        "repro_lazy_proba_update", "repro_fd_matvec", "repro_logistic_grad",
                        "repro_logistic_step_coef", "repro_logistic_snapshot_coef",
-                       "repro_svrg_update", "repro_fused_update", "repro_flash_decode"]
+                       "repro_svrg_update", "repro_fused_update", "repro_flash_decode",
+                       "repro_flash_decode_merge"]
     for entry, _, argtypes in _build._SIGNATURES:
         src = next(t for t in text.values() if f'extern "C" int {entry}(' in t)
         params = re.search(rf"{entry}\((.*?)\)\s*{{", src, re.S).group(1)

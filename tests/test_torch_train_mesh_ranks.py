@@ -1,20 +1,24 @@
-"""The rank code of the LM train step on a mesh.
+"""The rank code of the LM train step and decode on a mesh.
 
 ``spawn_ranks`` pickles these functions by reference, so each rank imports
 this module, which imports no JAX.  ``tests/test_torch_train_mesh.py``
-holds what they return against the port's no-mesh step and the
-reference's step on a host mesh.
+holds what they return against the port's no-mesh step and decode and the
+reference's on a host mesh.
 """
 
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config, reduced_config
+from repro_torch.kernels import ops
+from repro_torch.models import attention as t_attn
 from repro_torch.models import transformer
 from repro_torch.optim import optimizers as t_opt
-from repro_torch.sharding.specs import distribute, spec_leaves, spec_placements
+from repro_torch.sharding.specs import distribute, is_dtensor, spec_leaves, spec_placements
 from repro_torch.train import loop as t_loop
+from repro_torch.train.serve import make_serve_step
 
 
 # a preset cut further: its changes, applied after reduced_config in both packages
@@ -65,13 +69,86 @@ def local_slices_match(tree, specs, mesh) -> int:
     return n
 
 
-def rank_train(mesh, jobs: list, accum: int, lr: float) -> dict:
+def greedy(params, cfg, ctx, prompt: torch.Tensor, gen: int, max_len: int,
+           use_kernels: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """Prefill ``prompt`` and decode ``gen`` greedy tokens through
+    ``make_serve_step(cfg, ctx)``, as ``greedy_generate`` does: the tokens
+    ``[B, gen]`` and each step's float32 logits ``[gen, B, V]``, whole (a
+    DTensor's gathered)."""
+    _, cache = transformer.prefill(params, cfg, {"tokens": prompt}, max_len, ctx)
+    step = make_serve_step(cfg, ctx, use_kernels=use_kernels)
+    tok, tokens, logits = prompt[:, -1:], [], []
+    for i in range(gen):
+        tok, lg, cache = step(params, cache, tok, prompt.shape[1] + i - 1)
+        tokens.append(tok.full_tensor() if is_dtensor(tok) else tok)
+        logits.append((lg.full_tensor() if is_dtensor(lg) else lg)[:, 0].float())
+    return torch.cat(tokens, dim=1), torch.stack(logits)
+
+
+def rank_decode(mesh, jobs: list) -> dict:
+    """For each ``(name, arch, params, prompt, gen, max_len, overrides)``
+    of ``jobs``: a greedy decode on ``mesh`` (``make_ctx(mesh, cfg,
+    overrides)``; the cache laid out by ``cache_specs``, its positions
+    split over ``model``, or over ``data`` and ``model`` with the
+    long_500k overrides) with ``use_kernels=True`` and with
+    ``use_kernels=False``, returning both runs' tokens and logits, and
+    for the kernel route the calls of ``ops.decode_attention_partials``
+    and ``ops.decode_attention_merge`` (and how many partials were empty)
+    on each rank, in rank order."""
+    out = {}
+    for name, arch, plain, prompt, gen, max_len, overrides in jobs:
+        cfg = mesh_config(arch)
+        ctx = transformer.make_ctx(mesh, cfg, overrides)
+        params = distribute(plain, transformer.param_specs(plain, cfg, ctx, zero1=False), mesh)
+        tok = batch_layout(ctx, {"t": prompt}, 1)["t"]
+        calls = {"partials": 0, "empty": 0, "merge": 0}
+        partials, merge = ops.decode_attention_partials, ops.decode_attention_merge
+
+        def counted_partials(*a, **kw):
+            m, l, acc = partials(*a, **kw)
+            calls["partials"] += 1
+            calls["empty"] += int(not bool(torch.any(l > 0)))
+            return m, l, acc
+
+        def counted_merge(*a, **kw):
+            calls["merge"] += 1
+            return merge(*a, **kw)
+
+        ops.decode_attention_partials, ops.decode_attention_merge = counted_partials, counted_merge
+        try:
+            kernel = greedy(params, cfg, ctx, tok, gen, max_len, True)
+        finally:
+            ops.decode_attention_partials, ops.decode_attention_merge = partials, merge
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, calls)
+        out[name] = {"kernel": kernel, "plain": greedy(params, cfg, ctx, tok, gen, max_len, False),
+                     "calls": every}
+    out["heads_error"] = _heads_split_refusal(mesh)
+    return out
+
+
+def _heads_split_refusal(mesh) -> str:
+    """The message of the error the kernel route raises on a cache split
+    over heads ("" if none)."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    cfg = t_attn.AttnConfig(num_heads=4, num_kv_heads=2, head_dim=32)
+    k = distribute_tensor(torch.zeros((2, 8, 2, 32)), mesh, (Replicate(), Shard(2)))
+    qg = distribute_tensor(torch.zeros((2, 2, 2, 32)), mesh, (Replicate(), Replicate()))
+    try:
+        t_attn._decode_local(qg, k, k, 3, 1.0, cfg)
+    except ValueError as e:
+        return str(e)
+    return ""
+
+
+def rank_train(mesh, jobs: list, accum: int, lr: float, decodes: list) -> dict:
     """For each ``(arch, state, batches)`` of ``jobs``: ``len(batches)``
     adamw train steps on ``mesh`` from the plain ``state`` (the same on
     every rank), returning per-step metrics, the gathered masters after
     the last step and the number of leaves whose local shard was checked
-    against ``state_specs`` before and after; then, once, what a
-    ``flash_decode`` decode step raises on this mesh."""
+    against ``state_specs`` before and after; then :func:`rank_decode` of
+    ``decodes``."""
     out = {}
     for arch, state, batches in jobs:
         cfg = mesh_config(arch)
@@ -89,21 +166,5 @@ def rank_train(mesh, jobs: list, accum: int, lr: float) -> dict:
         out[arch] = {"metrics": metrics, "checked": checked,
                      "params": t_opt.tree_map(lambda p: p.full_tensor(), dstate["params"]),
                      "step": int(dstate["step"].full_tensor())}
-    out["decode_error"] = _decode_refusal(mesh, jobs[0][0], jobs[0][1])
+    out["decode"] = rank_decode(mesh, decodes)
     return out
-
-
-def _decode_refusal(mesh, arch: str, state: dict) -> str:
-    """The message of the error a kernel-route decode step raises on a mesh
-    whose ``model`` axis splits the cache ("" if none)."""
-    cfg = mesh_config(arch)
-    ctx = transformer.make_ctx(mesh, cfg)
-    params = distribute(state["params"], transformer.param_specs(state["params"], cfg, ctx,
-                                                                 zero1=False), mesh)
-    cache = transformer.init_cache(cfg, 4, 16, ctx)
-    tokens = batch_layout(ctx, {"t": torch.zeros((4, 1), dtype=torch.int32)}, 1)["t"]
-    try:
-        transformer.decode_step(params, cfg, cache, tokens, 3, ctx, use_kernels=True)
-    except ValueError as e:
-        return str(e)
-    return ""
