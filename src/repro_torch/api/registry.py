@@ -63,6 +63,7 @@ from repro_torch.data.block_csr import BlockCSR
 from repro_torch.data.pipeline import as_source, is_source
 from repro_torch.dist import ShardMapBackend, SimBackend
 from repro_torch.optim.update_rules import BCDRule, SAGARule, make_context, run_with_rule
+from repro_torch.spans import span
 
 #: Cap on inner steps per outer for the scaled trajectories of the largest
 #: sets (url/kdd) — subsampled epochs.
@@ -280,7 +281,9 @@ def solve(spec: ExperimentSpec) -> RunResult:
     Returns the driver's :class:`~repro_torch.core.driver.RunResult` —
     final iterate (on the run's device), per-outer history (objective,
     optimality residual, metered communication, modeled and wall-clock
-    time), and the run's meter.
+    time), and the run's meter.  While a profiler records, the driver
+    call is an ``rt/solve`` span holding the run's other spans
+    (:mod:`repro_torch.spans`).
     """
     info = method_info(spec.method)
     _validate(spec, info)
@@ -311,7 +314,8 @@ def solve(spec: ExperimentSpec) -> RunResult:
     else:
         q = 1
     resolved = _resolve(spec, info, n, q)
-    return info.run(spec, data, resolved, device)
+    with span("rt/solve"):
+        return info.run(spec, data, resolved, device)
 
 
 def capability_matrix() -> list[dict]:
@@ -460,7 +464,8 @@ def _solve_fdsvrg_sharded(spec, data, p, device) -> RunResult:
         rank = backend.device_worker_id()
     # Each rank builds its own block only, and not through BLOCK_CACHE:
     # no rank holds the other q - 1 blocks.
-    block = BlockCSR.block_of(data, balanced(data.dim, p.q), rank)
+    with span("rt/block_of"):
+        block = BlockCSR.block_of(data, balanced(data.dim, p.q), rank)
     return run_fdsvrg_sharded(
         None, mesh, cfg, feature_axes=axes, outer_iters=spec.outer_iters,
         seed=spec.seed, backend=backend, init_w=spec.init_w, block=block,

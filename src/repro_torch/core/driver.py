@@ -27,6 +27,11 @@ outers the harness persists (w, z, s0, outer index, eta scale, NumPy rng
 state, meter counters and event log, modeled time, history) through
 :mod:`repro_torch.checkpoint.ckpt`; a resumed run is bit for bit the
 uninterrupted one.
+
+While a profiler records, each outer iteration is an ``rt/outer`` span
+holding its ``rt/epoch``, ``rt/snapshot`` and ``rt/evaluate``; the
+outer-0 snapshot is an ``rt/snapshot`` before them
+(:mod:`repro_torch.spans`).
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from repro_torch.core import losses as losses_lib
 from repro_torch.dist.collectives import Collectives
 from repro_torch.dist.faults import FaultError
 from repro_torch.dist.meter import CommMeter
+from repro_torch.spans import span
 
 
 class DivergenceError(FaultError):
@@ -310,7 +316,8 @@ def run_outer_loop(
     start_outer = 0
     accepts_scale = "eta_scale" in inspect.signature(epoch).parameters
     t_start = time.perf_counter()
-    z_data, s0 = snapshot(w)  # outer-0 snapshot
+    with span("rt/snapshot"):
+        z_data, s0 = snapshot(w)  # outer-0 snapshot
     if checkpoint is not None and checkpoint.resume and checkpoint.exists():
         state = ckpt.restore(checkpoint.path, {"w": w, "z": z_data, "s0": s0})
         extra = ckpt.load_meta(checkpoint.path)["extra"]
@@ -329,70 +336,74 @@ def run_outer_loop(
             t_start = time.perf_counter() - history[-1].wall_time_s
     prev_obj: float | None = None
     for t in range(start_outer, outer_iters):
-        attempts = 0
-        while True:
-            begin_outer = getattr(backend, "begin_outer", None)
-            if begin_outer is not None:
-                begin_outer(t)
-            try:
-                if accepts_scale:
-                    w_new = epoch(t, rng, w, z_data, s0, eta_scale=eta_scale)
-                else:
-                    w_new = epoch(t, rng, w, z_data, s0)
-                z_new, s0_new = snapshot(w_new)
-                obj, gnorm = evaluate(w_new, z_new, s0_new)
-                if recovery is not None:
-                    floor = max(abs(prev_obj), 1.0) if prev_obj is not None \
-                        else None
-                    if not (np.isfinite(obj) and np.isfinite(gnorm)):
-                        raise DivergenceError(
-                            f"outer {t}: non-finite objective/optimality "
-                            f"(obj={obj}, norm={gnorm})"
-                        )
-                    if floor is not None and \
-                            obj > recovery.divergence_factor * floor:
-                        raise DivergenceError(
-                            f"outer {t}: objective exploded "
-                            f"({obj:.3e} > {recovery.divergence_factor:g} * "
-                            f"{floor:.3e})"
-                        )
-                break
-            except FaultError as err:
-                if recovery is None or attempts >= recovery.max_epoch_retries:
-                    raise
-                attempts += 1
-                if isinstance(err, DivergenceError):
-                    eta_scale *= recovery.eta_backoff
-                if recovery.on_abort is not None and backend is not None:
-                    recovery.on_abort(backend)
-        w, z_data, s0 = w_new, z_new, s0_new
-        prev_obj = obj
-        history.append(
-            OuterRecord(
-                t,
-                obj,
-                gnorm,
-                meter.total_scalars,
-                meter.total_rounds,
-                backend.modeled_time_s if backend is not None else 0.0,
-                time.perf_counter() - t_start,
+        with span("rt/outer"):
+            attempts = 0
+            while True:
+                begin_outer = getattr(backend, "begin_outer", None)
+                if begin_outer is not None:
+                    begin_outer(t)
+                try:
+                    with span("rt/epoch"):
+                        if accepts_scale:
+                            w_new = epoch(t, rng, w, z_data, s0, eta_scale=eta_scale)
+                        else:
+                            w_new = epoch(t, rng, w, z_data, s0)
+                    with span("rt/snapshot"):
+                        z_new, s0_new = snapshot(w_new)
+                    with span("rt/evaluate"):
+                        obj, gnorm = evaluate(w_new, z_new, s0_new)
+                    if recovery is not None:
+                        floor = max(abs(prev_obj), 1.0) if prev_obj is not None \
+                            else None
+                        if not (np.isfinite(obj) and np.isfinite(gnorm)):
+                            raise DivergenceError(
+                                f"outer {t}: non-finite objective/optimality "
+                                f"(obj={obj}, norm={gnorm})"
+                            )
+                        if floor is not None and \
+                                obj > recovery.divergence_factor * floor:
+                            raise DivergenceError(
+                                f"outer {t}: objective exploded "
+                                f"({obj:.3e} > {recovery.divergence_factor:g} * "
+                                f"{floor:.3e})"
+                            )
+                    break
+                except FaultError as err:
+                    if recovery is None or attempts >= recovery.max_epoch_retries:
+                        raise
+                    attempts += 1
+                    if isinstance(err, DivergenceError):
+                        eta_scale *= recovery.eta_backoff
+                    if recovery.on_abort is not None and backend is not None:
+                        recovery.on_abort(backend)
+            w, z_data, s0 = w_new, z_new, s0_new
+            prev_obj = obj
+            history.append(
+                OuterRecord(
+                    t,
+                    obj,
+                    gnorm,
+                    meter.total_scalars,
+                    meter.total_rounds,
+                    backend.modeled_time_s if backend is not None else 0.0,
+                    time.perf_counter() - t_start,
+                )
             )
-        )
-        if checkpoint is not None and (
-            (t + 1) % checkpoint.every == 0 or t == outer_iters - 1
-        ):
-            _save_outer_state(
-                checkpoint,
-                w=w,
-                z_data=z_data,
-                s0=s0,
-                outer_next=t + 1,
-                eta_scale=eta_scale,
-                rng=rng,
-                meter=meter,
-                modeled_time_s=(
-                    backend.modeled_time_s if backend is not None else 0.0
-                ),
-                history=history,
-            )
+            if checkpoint is not None and (
+                (t + 1) % checkpoint.every == 0 or t == outer_iters - 1
+            ):
+                _save_outer_state(
+                    checkpoint,
+                    w=w,
+                    z_data=z_data,
+                    s0=s0,
+                    outer_next=t + 1,
+                    eta_scale=eta_scale,
+                    rng=rng,
+                    meter=meter,
+                    modeled_time_s=(
+                        backend.modeled_time_s if backend is not None else 0.0
+                    ),
+                    history=history,
+                )
     return RunResult(w=w, history=history, meter=meter)

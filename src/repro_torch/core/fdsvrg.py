@@ -28,6 +28,10 @@ flush one an epoch) through :mod:`repro_torch.kernels.ops`: the CUDA
 kernels on a CUDA device, their plain PyTorch versions on the CPU.
 ``use_kernels=False`` is the plain path written like the reference's jnp
 oracle.
+
+While a profiler records, the ids' copy to the device is an ``rt/draw``
+span, each inner step an ``rt/step`` and the exact-lazy flush an
+``rt/flush`` (:mod:`repro_torch.spans`).
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core import losses as losses_lib
 from repro_torch.core.driver import (
     CheckpointPolicy,
@@ -206,7 +211,9 @@ def _inner_epoch(
     m_total, u = samples.shape
     bounds = _bounds(bd.block_dims)
     eta_steps = np.float32(eta) * step_mask.astype(np.float32)  # float32[M]
-    ids_all = _to_device(samples.astype(np.int64), device)
+    traced = spans.recording()
+    with spans.span("rt/draw", traced):
+        ids_all = _to_device(samples.astype(np.int64), device)
     u_t = torch.full((), float(u), dtype=w0.dtype, device=device)
     lams = (reg.smooth_lam, reg.prox_l1, reg.prox_l2)
     if use_kernels:
@@ -218,27 +225,28 @@ def _inner_epoch(
     w_blocks = [w[bounds[l]:bounds[l + 1]] for l in range(q)]
     z_blocks = [z_data[bounds[l]:bounds[l + 1]] for l in range(q)]
     for m in range(m_total):
-        ids = ids_all[m]
-        if use_kernels:
-            s_m, rows, _ = ops.step_margins(bd, ids, w, out=rows_buf)
-            coef = ops.step_coef(bd, ids, s_m, s0, u_t, loss)
-        else:
-            rows = _gather_rows(bd, ids)
-            # Pairwise summation mirroring Figure 5 (the FD == serial contract).
-            s_m = tree_order_sum([local_margins(*rows[l], w_blocks[l]) for l in range(q)])
-            coef = logistic_grad.step_coef_plain(s_m, ids, bd.labels, s0, u_t, loss.dvalue)
-        for l in range(q):
-            idx, val = rows[l]
+        with spans.span("rt/step", traced):
+            ids = ids_all[m]
             if use_kernels:
-                ops.fused_block_prox_update(
-                    w_blocks[l], idx, val, coef, z_blocks[l], float(eta_steps[m]),
-                    lam=lams[0], lam1=lams[1], lam2=lams[2], out=w_blocks[l],
-                )
+                s_m, rows, _ = ops.step_margins(bd, ids, w, out=rows_buf)
+                coef = ops.step_coef(bd, ids, s_m, s0, u_t, loss)
             else:
-                eta_m = eta_dev[m]
-                g = local_scatter(idx, val, coef, bd.block_dims[l])
-                g = g + z_blocks[l] + reg.smooth_grad(w_blocks[l])
-                w_blocks[l] = reg.prox(w_blocks[l] - eta_m * g, eta_m)
+                rows = _gather_rows(bd, ids)
+                # Pairwise summation mirroring Figure 5 (the FD == serial contract).
+                s_m = tree_order_sum([local_margins(*rows[l], w_blocks[l]) for l in range(q)])
+                coef = logistic_grad.step_coef_plain(s_m, ids, bd.labels, s0, u_t, loss.dvalue)
+            for l in range(q):
+                idx, val = rows[l]
+                if use_kernels:
+                    ops.fused_block_prox_update(
+                        w_blocks[l], idx, val, coef, z_blocks[l], float(eta_steps[m]),
+                        lam=lams[0], lam1=lams[1], lam2=lams[2], out=w_blocks[l],
+                    )
+                else:
+                    eta_m = eta_dev[m]
+                    g = local_scatter(idx, val, coef, bd.block_dims[l])
+                    g = g + z_blocks[l] + reg.smooth_grad(w_blocks[l])
+                    w_blocks[l] = reg.prox(w_blocks[l] - eta_m * g, eta_m)
     if use_kernels:
         return w
     return torch.cat(w_blocks) if q > 1 else w_blocks[0]
@@ -332,7 +340,9 @@ def _lazy_inner_epoch(
     eta_steps = np.float32(eta) * step_mask.astype(np.float32)  # float32[M]
     # Option masks are 1s then 0s: a gap is `active` replays + <= 1 masked.
     stop = int(step_mask.sum())
-    ids_all = _to_device(samples.astype(np.int64), device)
+    traced = spans.recording()
+    with spans.span("rt/draw", traced):
+        ids_all = _to_device(samples.astype(np.int64), device)
     u_t = torch.full((), float(u), dtype=w0.dtype, device=device)
     smooth_lam, lam1, lam2 = _lazy_lams(reg)
     w = w0.clone()
@@ -402,49 +412,51 @@ def _lazy_inner_epoch(
         w_blk[flat] = v
 
     for m in range(m_total):
-        ids = ids_all[m]
-        # The margins gather only touched ids, which the catch-up first
-        # materializes: coef is the dense epoch's, bit for bit.
-        if use_kernels:
-            if exact:
-                ops.lazy_step_catchup(bd, ids, w, last, z_data, eta32, m, stop,
-                                      lam=smooth_lam, lam1=lam1, lam2=lam2)
-            s_m, rows, _ = ops.step_margins(bd, ids, w, out=rows_buf)
-            coef = ops.step_coef(bd, ids, s_m, s0, u_t, loss)
-        else:
-            rows = _gather_rows(bd, ids)
-            if exact:
-                for l in range(q):
-                    plain_catchup(w_blocks[l], last_blocks[l], z_blocks[l], rows[l][0], m)
-            s_m = tree_order_sum([local_margins(*rows[l], w_blocks[l]) for l in range(q)])
-            coef = logistic_grad.step_coef_plain(s_m, ids, bd.labels, s0, u_t, loss.dvalue)
-        for l in range(q):
-            idx, val = rows[l]
-            if use_kernels and exact:
-                ops.lazy_block_touch_update(
-                    w_blocks[l], idx, val, coef, z_blocks[l], float(eta_steps[m]),
-                    lam=smooth_lam, lam1=lam1, lam2=lam2,
-                )
-            elif use_kernels:
-                ops.lazy_block_proba_update(
-                    w_blocks[l], idx, val, coef, z_blocks[l], corr_blocks[l],
-                    float(eta_steps[m]), lam=smooth_lam, lam1=lam1, lam2=lam2,
-                )
-            elif exact:
-                plain_touch(w_blocks[l], idx, val, coef, z_blocks[l], eta_dev[m])
+        with spans.span("rt/step", traced):
+            ids = ids_all[m]
+            # The margins gather only touched ids, which the catch-up first
+            # materializes: coef is the dense epoch's, bit for bit.
+            if use_kernels:
+                if exact:
+                    ops.lazy_step_catchup(bd, ids, w, last, z_data, eta32, m, stop,
+                                          lam=smooth_lam, lam1=lam1, lam2=lam2)
+                s_m, rows, _ = ops.step_margins(bd, ids, w, out=rows_buf)
+                coef = ops.step_coef(bd, ids, s_m, s0, u_t, loss)
             else:
-                plain_proba(w_blocks[l], idx, val, coef, z_blocks[l], corr_blocks[l],
-                            eta_dev[m])
+                rows = _gather_rows(bd, ids)
+                if exact:
+                    for l in range(q):
+                        plain_catchup(w_blocks[l], last_blocks[l], z_blocks[l], rows[l][0], m)
+                s_m = tree_order_sum([local_margins(*rows[l], w_blocks[l]) for l in range(q)])
+                coef = logistic_grad.step_coef_plain(s_m, ids, bd.labels, s0, u_t, loss.dvalue)
+            for l in range(q):
+                idx, val = rows[l]
+                if use_kernels and exact:
+                    ops.lazy_block_touch_update(
+                        w_blocks[l], idx, val, coef, z_blocks[l], float(eta_steps[m]),
+                        lam=smooth_lam, lam1=lam1, lam2=lam2,
+                    )
+                elif use_kernels:
+                    ops.lazy_block_proba_update(
+                        w_blocks[l], idx, val, coef, z_blocks[l], corr_blocks[l],
+                        float(eta_steps[m]), lam=smooth_lam, lam1=lam1, lam2=lam2,
+                    )
+                elif exact:
+                    plain_touch(w_blocks[l], idx, val, coef, z_blocks[l], eta_dev[m])
+                else:
+                    plain_proba(w_blocks[l], idx, val, coef, z_blocks[l], corr_blocks[l],
+                                eta_dev[m])
     if exact:
         # Epoch-end flush: snapshots, objectives and meters downstream see
         # the fully materialized iterate.  On the kernel path one launch
         # over the whole width (each feature replays from its own last).
-        if use_kernels:
-            ops.lazy_block_flush(w, last, z_data, eta32, m_total, stop,
-                                 lam=smooth_lam, lam1=lam1, lam2=lam2)
-        else:
-            for l in range(q):
-                plain_flush(w_blocks[l], last_blocks[l], z_blocks[l])
+        with spans.span("rt/flush", traced):
+            if use_kernels:
+                ops.lazy_block_flush(w, last, z_data, eta32, m_total, stop,
+                                     lam=smooth_lam, lam1=lam1, lam2=lam2)
+            else:
+                for l in range(q):
+                    plain_flush(w_blocks[l], last_blocks[l], z_blocks[l])
     return w
 
 

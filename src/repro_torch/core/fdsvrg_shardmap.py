@@ -40,6 +40,10 @@ host-side with the shared §4.5 closed forms (:data:`repro_torch.dist.COSTS`).
 
 Unlike the reference, ``dim`` need not divide by q: blocks are
 ``balanced``, as :func:`run_fdsvrg`'s are.
+
+While a profiler records, the draw and the ids' copy are ``rt/draw``
+spans and each inner step an ``rt/step``; the collectives inside are
+``rt/all_reduce`` and ``rt/all_gather`` (:mod:`repro_torch.spans`).
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core import losses as losses_lib
 from repro_torch.core.driver import (
     RunResult,
@@ -158,7 +163,9 @@ def _inner_scan_blk(cfg, backend, loss, reg, block, w_blk, z_blk, s0, samples):
     m_total, u = samples.shape
     device, dtype = w_blk.device, w_blk.dtype
     eta32 = float(np.float32(cfg.eta))
-    ids_all = _to_device(samples.astype(np.int64), device)
+    traced = spans.recording()
+    with spans.span("rt/draw", traced):
+        ids_all = _to_device(samples.astype(np.int64), device)
     u_t = torch.full((), float(u), dtype=dtype, device=device)
     if cfg.use_kernels:
         w = w_blk.clone()
@@ -168,17 +175,18 @@ def _inner_scan_blk(cfg, backend, loss, reg, block, w_blk, z_blk, s0, samples):
         rows_buf = None
         eta_t = torch.full((), eta32, dtype=torch.float32, device=device)
     for m in range(m_total):
-        ids = ids_all[m]
-        partial, (idx, val) = _margin_of(cfg, block, w, ids, rows_buf)
-        s_m = backend.device_all_reduce(partial)
-        if cfg.use_kernels:
-            coef = ops.step_coef(block, ids, s_m, s0, u_t, loss)
-            ops.fused_block_prox_update(w, idx, val, coef, z_blk, eta32, lam=reg.smooth_lam,
-                                        lam1=reg.prox_l1, lam2=reg.prox_l2, out=w)
-        else:
-            coef = logistic_grad.step_coef_plain(s_m, ids, block.labels, s0, u_t, loss.dvalue)
-            g = local_scatter(idx, val, coef, block.dim) + z_blk + reg.smooth_grad(w)
-            w = reg.prox(w - eta_t * g, eta_t)
+        with spans.span("rt/step", traced):
+            ids = ids_all[m]
+            partial, (idx, val) = _margin_of(cfg, block, w, ids, rows_buf)
+            s_m = backend.device_all_reduce(partial)
+            if cfg.use_kernels:
+                coef = ops.step_coef(block, ids, s_m, s0, u_t, loss)
+                ops.fused_block_prox_update(w, idx, val, coef, z_blk, eta32, lam=reg.smooth_lam,
+                                            lam1=reg.prox_l1, lam2=reg.prox_l2, out=w)
+            else:
+                coef = logistic_grad.step_coef_plain(s_m, ids, block.labels, s0, u_t, loss.dvalue)
+                g = local_scatter(idx, val, coef, block.dim) + z_blk + reg.smooth_grad(w)
+                w = reg.prox(w - eta_t * g, eta_t)
     return w
 
 
@@ -325,7 +333,8 @@ def run_fdsvrg_sharded(
     def epoch(t, rng, w_blk, z_blk, s0):
         backend.meter_tree(payload=n)
         backend.charge_cost(COSTS.fd_fullgrad(n=n, nnz=nnz, q=q))
-        samples = draw_samples(rng, n, cfg.inner_steps, u)
+        with spans.span("rt/draw"):
+            samples = draw_samples(rng, n, cfg.inner_steps, u)
         w_blk = inner_epoch(w_blk, z_blk, s0, block, samples)
         backend.meter_tree(payload=u, steps=cfg.inner_steps)
         backend.charge_cost(COSTS.fd_inner_step(nnz=nnz, q=q, u=u), steps=cfg.inner_steps)

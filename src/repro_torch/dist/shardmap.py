@@ -44,6 +44,7 @@ import torch.distributed as dist
 from repro_torch.dist.collectives import MeteredBackend
 from repro_torch.dist.meter import ClusterModel
 from repro_torch.dist.tree import collective_permute_tree, psum_tree
+from repro_torch.spans import span
 
 TREE_MODES = ("psum", "butterfly")
 
@@ -235,7 +236,8 @@ class ShardMapBackend(MeteredBackend):
         (``psum``) or the butterfly; the identity with q = 1 and no mesh."""
         if self._local("device_all_reduce"):
             return x
-        return self._timed(x, lambda: self._all_reduce(x))
+        with span("rt/all_reduce"):
+            return self._timed(x, lambda: self._all_reduce(x))
 
     def _all_reduce(self, x: torch.Tensor) -> torch.Tensor:
         staged = self._stage(x)
@@ -257,7 +259,8 @@ class ShardMapBackend(MeteredBackend):
         q = 1 and no mesh."""
         if self._local("device_all_gather"):
             return x
-        return self._timed(x, lambda: self._all_gather(x, sizes))
+        with span("rt/all_gather"):
+            return self._timed(x, lambda: self._all_gather(x, sizes))
 
     def _all_gather(self, x: torch.Tensor, sizes: Sequence[int]) -> torch.Tensor:
         staged = self._stage(x)

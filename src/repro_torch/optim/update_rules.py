@@ -61,6 +61,7 @@ from repro_torch.dist import COSTS, Collectives, tree_order_sum
 from repro_torch.kernels import ops
 from repro_torch.kernels.block_scatter import scatter_index
 from repro_torch.kernels.logistic_grad import snapshot_coef_plain
+from repro_torch.spans import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -308,8 +309,9 @@ class SVRGRule(UpdateRule):
                 backend.meter_tree(payload=n * k)
                 backend.charge_cost(COSTS.fd_fullgrad(n=n, nnz=nnz, q=q, k=k))
             eta = cfg.eta * eta_scale
-            samples = draw_samples(rng, n, cfg.inner_steps, u)
-            mask = option_mask(rng, cfg.inner_steps, cfg.option)
+            with span("rt/draw"):
+                samples = draw_samples(rng, n, cfg.inner_steps, u)
+                mask = option_mask(rng, cfg.inner_steps, cfg.option)
             if lazy_updates is not None:
                 w = _lazy_inner_epoch(
                     bd, w, z_data, s0, samples, eta, mask, corrections, loss, reg,
