@@ -3517,6 +3517,79 @@ def run() -> dict:
                      time_plain=False)
     del last_full
 
+    # 3b'''. The step's touched pass: one launch for a step's gathered rows
+    # in all 8 blocks (ops.lazy_step_touch_update, the exact-lazy path's
+    # call), from the caught-up state above, at u = 1 (the main path's), 8
+    # and 64, for the four regularizers, unmasked and masked (eta * 0); w
+    # bitwise the same call on the CPU (the plain version block after
+    # block).  Timed at the path's regularizer, unmasked, beside the same
+    # kernel as 8 one-block launches and the card's plain version, with a
+    # bound over all 8 blocks' entries.
+    rng_t = np.random.default_rng(SEED + 12)
+    step_touch_rows = {}
+    for u_ck in (1, 8, 64):
+        ids = sampled64 if u_ck == 64 else ck_ids[m_ck, :u_ck]
+        coef = torch.from_numpy(rng_t.normal(0.0, 0.5, size=u_ck).astype(np.float32)).to(dev)
+        rows_t = ops.step_rows(bd8, u_ck)
+        ops.step_margins(bd8, ids, w_state, out=rows_t)
+        rows_cpu = ops.step_rows(bd8_cpu, u_ck)
+        ops.step_margins(bd8_cpu, ids.cpu(), w_state.cpu(), out=rows_cpu)
+        g = global_ids(ids).reshape(-1)
+        distinct = int(torch.unique(g).numel())
+        entries = g.numel()
+        for reg_name, (lam, lam1, lam2) in settings.items():
+            for case in ("unmasked", "masked"):
+                eta_m = eta if case == "unmasked" else 0.0
+                a = w_state.clone()
+                ops.reset_launch_counts()
+                ops.lazy_step_touch_update(bd8, rows_t, a, z_all, coef, eta_m, lam=lam,
+                                           lam1=lam1, lam2=lam2)
+                one_launch = ops.launch_counts()["lazy_touch_update"] == 1
+                cpu = w_state.cpu()
+                ops.lazy_step_touch_update(bd8_cpu, rows_cpu, cpu, z_all_cpu, coef.cpu(), eta_m,
+                                           lam=lam, lam1=lam1, lam2=lam2)
+                bits = bitwise_vs_cpu(a, cpu)
+                row = {"phase": "kernel_check", "kernel": "lazy_touch_update",
+                       "entry": "ops.lazy_step_touch_update", "u": u_ck, "reg": reg_name,
+                       "case": case, "shape": "one step over 8 blocks", "blocks": Q,
+                       "entries": entries, "distinct_ids": distinct,
+                       "ctas": sum(-(-u_ck * wd // 1024) for wd in bd8.nnz_budgets),
+                       "launches_per_call": 1 if one_launch else None,
+                       "bitwise_vs_cpu_plain": bits,
+                       "n_differ": int(torch.count_nonzero(a.cpu() != cpu)),
+                       "max_abs_err": float(torch.max(torch.abs(a.cpu() - cpu))),
+                       "tolerance": "w bitwise the CPU plain version"}
+                if reg_name == reg.name and case == "unmasked":
+                    def restore(a=a):
+                        a.copy_(w_state)
+
+                    def per_block(a=a, fn=lazy_mod.lazy_touch_update, lam=lam, lam1=lam1,
+                                  lam2=lam2):
+                        for l in range(Q):
+                            lo, hi = bounds8[l], bounds8[l + 1]
+                            fn(a[lo:hi], *rows_t.blocks[l], coef, z_all[lo:hi], eta_m, lam,
+                               lam1, lam2)
+
+                    b_ms, b_by = bound_ms(entries * 8 + u_ck * 4 + distinct * 12,
+                                          2.0 * entries + distinct * step_flops(lam1, lam2))
+                    row.update({
+                        "l2": "warm",
+                        "kernel_ms": device_ms(torch, lambda: ops.lazy_step_touch_update(
+                            bd8, rows_t, a, z_all, coef, eta_m, lam=lam, lam1=lam1, lam2=lam2),
+                            200, restore),
+                        "per_block_ms": device_ms(torch, per_block, 50, restore),
+                        "plain_ms": device_ms(torch, lambda: per_block(
+                            fn=lazy_mod.lazy_touch_update_plain), 20, restore),
+                        "host_ms": host_ms(torch, lambda: ops.lazy_step_touch_update(
+                            bd8, rows_t, a, z_all, coef, eta_m, lam=lam, lam1=lam1, lam2=lam2),
+                            200),
+                        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by})
+                emit(row)
+                require(one_launch and bits,
+                        f"lazy_touch_update step u={u_ck} {reg_name} {case}: {row}")
+                step_touch_rows[(u_ck, reg_name, case)] = row
+        del rows_t, rows_cpu
+
     # 3b''. The epoch-end flush over the whole width (ops.lazy_block_flush
     # over the 8 blocks' features: one launch) at the state the catch-up
     # epoch above left, four regularizers, unmasked and with an Option II
@@ -3633,7 +3706,7 @@ def run() -> dict:
                 2.0 * idx_w.numel() + distinct * step_flops(lam1, lam2, c is not None))
             row = {"phase": "kernel_check", "kernel": kernel, "u": u_w, "reg": reg.name,
                    "case": "kdd2010 width", "d_block": d_wide, "nnz_l": width,
-                   "grid_blocks": -(-idx_w.numel() // 256), "distinct_ids": distinct,
+                   "grid_blocks": -(-idx_w.numel() // 1024), "distinct_ids": distinct,
                    "bitwise_vs_cpu_plain": cpu_bits, "l2": "warm",
                    "kernel_ms": device_ms(torch, lambda: kfn(
                        a, idx_w, val_w, coef_w, z_wide, *extra, eta, lam, lam1, lam2), 200, restore),
@@ -3820,7 +3893,7 @@ def run() -> dict:
         ops, sparse_margin=(OUTERS + 1) + INNER_STEPS * OUTERS,
         logistic_grad=(OUTERS + 1) + INNER_STEPS * OUTERS,
         block_scatter=OUTERS + 1, lazy_catchup=INNER_STEPS * OUTERS,
-        lazy_touch_update=Q * INNER_STEPS * OUTERS,
+        lazy_touch_update=INNER_STEPS * OUTERS,
         lazy_flush=OUTERS)
     lazy_objs = [h.objective for h in lazy_res.history]
     lazy_rel = float(np.max(np.abs(np.array(lazy_objs) - np.array(objs)) / np.abs(objs)))
@@ -4705,9 +4778,9 @@ def run() -> dict:
 
     # 24. The kernels line.  Launches: sparse_margin, logistic_grad,
     # block_scatter and prox_update from the dense main path (sparse_margin's,
-    # logistic_grad's and lazy_catchup's times at one step over all 8
-    # blocks, lazy_flush's at one epoch's flush, their launches on the path), the
-    # exact-lazy kernels from the lazy_exact_path
+    # logistic_grad's, lazy_catchup's and lazy_touch_update's times at one
+    # step over all 8 blocks, lazy_flush's at one epoch's flush, their
+    # launches on the path), the exact-lazy kernels from the lazy_exact_path
     # run, lazy_proba_update from the lazy_proba_path run, the dense-layout
     # kernels from the dense_step run, flash_decode from lm_decode_long.
     # Times at the main path's shapes (block 0, u = 1, its regularizer,
@@ -4716,6 +4789,7 @@ def run() -> dict:
     margin_step = multi_margin_rows[f"step u={u}"]
     snap8 = multi_margin_rows["snapshot R=N"]
     ck_step = step_ck_rows[(f"step m={m_ck}, 8 blocks", u, reg.name, "unmasked")]
+    touch_step = step_touch_rows[(u, reg.name, "unmasked")]
     step = prox_rows[(u, reg.name)]
     fd_label = f"qwen3-14b B = 1, length = {INPUT_SHAPES['decode_32k'].seq_len}"
     fd_row = decode_rows[fd_label]
@@ -4800,8 +4874,18 @@ def run() -> dict:
          "per_block_ms": ck_step["per_block_ms"], "library_ms": None,
          "shape": f"one step over 8 blocks, u={u}, m={m_ck} after a {m_ck}-step epoch, "
                   f"{reg.name} (bitwise the CPU)"},
-        lazy_entry("lazy_touch_update", 177, lazy_counts["lazy_touch_update"],
-                   f"block 0: d_l={d0}, u={u}, {reg.name}"),
+        {"name": "lazy_touch_update", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/lazy_update.cu",
+         "replaces": "src/repro/kernels/lazy_update.py:177",
+         "launches": lazy_counts["lazy_touch_update"],
+         "launches_by_path": by_path("lazy_touch_update"),
+         "max_abs_err": max(r["max_abs_err"] for r in step_touch_rows.values()),
+         "ms": touch_step["kernel_ms"], "host_ms": touch_step["host_ms"],
+         "plain_ms": touch_step["plain_ms"], "bound_ms": touch_step["bound_ms"],
+         "bound_by": touch_step["bound_by"], "per_block_ms": touch_step["per_block_ms"],
+         "library_ms": None,
+         "block0_ms": lazy_rows[("lazy_touch_update", u, reg.name, "unmasked")]["kernel_ms"],
+         "shape": f"one step over 8 blocks, u={u}, {reg.name} (bitwise the CPU)"},
         {"name": "lazy_flush", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/lazy_update.cu",
          "replaces": "src/repro/kernels/lazy_update.py:224",

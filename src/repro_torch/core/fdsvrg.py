@@ -323,8 +323,9 @@ def _lazy_inner_epoch(
     one.  ``w0`` is copied once; the steps update the copy in place (the
     lazy kernels and their plain versions work in place).  On the kernel
     path a step's catch-up is one launch for all q blocks, and so are its
-    margins with the gathered rows; its coefficients are one launch, and
-    the epoch's flush one over the whole width.  Samples, mask
+    margins with the gathered rows and its exact touched pass; its
+    coefficients are one launch, and the epoch's flush one over the whole
+    width.  Samples, mask
     and ``stop = sum(mask)`` come from numpy on the host, so on the kernel
     path no step waits on the device.  ``use_kernels=False`` mirrors the
     reference's jnp closures; its replay reads ``max(k_active)`` from the
@@ -429,23 +430,22 @@ def _lazy_inner_epoch(
                         plain_catchup(w_blocks[l], last_blocks[l], z_blocks[l], rows[l][0], m)
                 s_m = tree_order_sum([local_margins(*rows[l], w_blocks[l]) for l in range(q)])
                 coef = logistic_grad.step_coef_plain(s_m, ids, bd.labels, s0, u_t, loss.dvalue)
-            for l in range(q):
-                idx, val = rows[l]
-                if use_kernels and exact:
-                    ops.lazy_block_touch_update(
-                        w_blocks[l], idx, val, coef, z_blocks[l], float(eta_steps[m]),
-                        lam=smooth_lam, lam1=lam1, lam2=lam2,
-                    )
-                elif use_kernels:
-                    ops.lazy_block_proba_update(
-                        w_blocks[l], idx, val, coef, z_blocks[l], corr_blocks[l],
-                        float(eta_steps[m]), lam=smooth_lam, lam1=lam1, lam2=lam2,
-                    )
-                elif exact:
-                    plain_touch(w_blocks[l], idx, val, coef, z_blocks[l], eta_dev[m])
-                else:
-                    plain_proba(w_blocks[l], idx, val, coef, z_blocks[l], corr_blocks[l],
-                                eta_dev[m])
+            if use_kernels and exact:
+                ops.lazy_step_touch_update(bd, rows_buf, w, z_data, coef, float(eta_steps[m]),
+                                           lam=smooth_lam, lam1=lam1, lam2=lam2)
+            else:
+                for l in range(q):
+                    idx, val = rows[l]
+                    if use_kernels:
+                        ops.lazy_block_proba_update(
+                            w_blocks[l], idx, val, coef, z_blocks[l], corr_blocks[l],
+                            float(eta_steps[m]), lam=smooth_lam, lam1=lam1, lam2=lam2,
+                        )
+                    elif exact:
+                        plain_touch(w_blocks[l], idx, val, coef, z_blocks[l], eta_dev[m])
+                    else:
+                        plain_proba(w_blocks[l], idx, val, coef, z_blocks[l],
+                                    corr_blocks[l], eta_dev[m])
     if exact:
         # Epoch-end flush: snapshots, objectives and meters downstream see
         # the fully materialized iterate.  On the kernel path one launch

@@ -51,16 +51,19 @@ _SIGNATURES = (
         _I,
         (_P, _I, _P, _I, _P, _P, _P, _F, _I, _I, _F, _F, _F, _P),
     ),
+    # The touched pass over q blocks: the host BlockRows, q, the step's
+    # gathered ids and values, coef, w, z (and the proba update's corr;
+    # whole), u, eta, lam, lam1, lam2.
     (
         "repro_lazy_touch_update",
         _I,
-        (_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _P),
+        (_P, _I, _P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _P),
     ),
     ("repro_lazy_flush", _I, (_P, _P, _P, _I, _F, _I, _I, _F, _F, _F, _P)),
     (
         "repro_lazy_proba_update",
         _I,
-        (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _P),
+        (_P, _I, _P, _P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _P),
     ),
     # The dense-layout step; the int before the stream of fd_matvec and
     # logistic_grad is the FLOAT_CODES code of the inputs' dtype.  fd_matvec:
@@ -94,7 +97,7 @@ MAX_BLOCKS = 128  # touched.cuh's kMaxBlocks: the blocks a BlockRows holds
 
 class BlockRows(ctypes.Structure):
     """touched.cuh's BlockRows: q blocks' rows, passed by value to the
-    margins and catch-up launches.  It holds raw pointers: keep the
+    margins, catch-up and touched-pass launches.  It holds raw pointers: keep the
     tensors it was built from alive as long as it is used."""
 
     _fields_ = [

@@ -15,7 +15,11 @@
 //                        which runs once per block.
 //   lazy_touch_update  — the dense prox step at the touched features only
 //                        (launch_entries of touched.cuh, writing w in
-//                        place).  Replaces lazy_update.py:177.
+//                        place).  One launch covers the step's gathered
+//                        rows in all q blocks (BlockRows, with w and z
+//                        whole); one block's rows are the q = 1 case.
+//                        Replaces lazy_update.py:177, which runs once per
+//                        block.
 //   lazy_flush         — at epoch end, every feature replays its remaining
 //                        deferred steps up to total.  A feature's replay
 //                        reads its own w, last and z only, so one launch
@@ -25,7 +29,8 @@
 //                        runs once per block.
 //   lazy_proba_update  — the probabilistic variant: touched features only,
 //                        the decay (z + lam * w) and both prox strengths
-//                        scaled by corr[j] = 1 / P(j touched per step).
+//                        scaled by corr[j] = 1 / P(j touched per step);
+//                        the touched pass's kernel on one block's rows.
 //                        Replaces lazy_update.py:266.
 //
 // All four update w (and last) in place; the Python wrappers
@@ -41,12 +46,13 @@
 // the generator's piled ids).  The reference's .at[flat].set is benign
 // because every duplicate lane computes from the same OLD w[j] and
 // last[j]; here a thread that read w[j] after another's write would
-// replay the gap twice.  So each id has one owner, by the rule of the
-// touched pass (touched.cuh's entries_kernel): a CTA of the catch-up takes
-// kOwn = 256 flat positions of one block's sampled rows, enters their ids
-// in a shared hash table (home_slot, table_insert), marks foreign every
-// key that an earlier position of the block holds (table_find), and owns
-// the rest.  Blocks hold disjoint features, so only one block's ids meet.
+// replay the gap twice.  So each id has one owner: a CTA of the catch-up
+// takes kOwn = 256 flat positions of one block's sampled rows, enters
+// their ids in a shared hash table (touched.cuh's home_slot,
+// table_insert), marks foreign every key that an earlier position of the
+// block holds (table_find), and owns the rest.  Blocks hold disjoint
+// features, so only one block's ids meet.  (The touched pass owns its ids
+// by a hash instead: touched.cuh.)
 //
 // What bounds them on an H100:
 //   catch-up — the latency of the longest replay chain: a feature last
@@ -62,13 +68,23 @@
 //     loads overlap the inserts and the ownership scan.  The scan grows
 //     with the entries: at u = 64 block 0's last CTA reads ~10,000 earlier
 //     positions, and that, not the chain, sets the step's time.
-//   touch / proba — launch latency: u * nnz_l entries, a few dependent
-//     rounds (load, hash, compact, fold, store).  The grid is sized to
-//     the entries, not to d_block: ceil(u * nnz_l / 256) blocks of
-//     touched.cuh's entries_kernel (1 at u = 1, 6 at u = 8, 41 at u = 64
-//     for news20 block 0 at q = 8), each owning the ids first met in its
-//     256 flat positions and reading every entry once, so a step costs
-//     the same at d_block = 169,399 as at kdd2010's 29.9M.
+//   touch / proba — a CTA's read of its block and its fold, then the
+//     longest chain of one id.  touched.cuh's entries_kernel gives block l
+//     ceil(u * nnz_l / 1024) CTAs, each owning the ids whose hash falls in
+//     its part (9 a block for news20 at u = 128, 16 for webspam at u = 64;
+//     72 and 256 CTAs in the step's one launch), and each thread adds its
+//     ids' kept contributions in flat order.  With a row holding each id
+//     once an id's chain is at most u adds (128 * 4 cycles, ~0.26 us at
+//     1.98 GHz), and the padding's +-0.0 terms are skipped (they leave a
+//     sum from +0.0 as it is), so the padding id's chain holds its genuine
+//     entries only.  What sets the time is each CTA's pass over all of
+//     its block's u * nnz_l ids and values (2 spans of up to 8,192 on
+//     either cell, each warp its share with one chunk loaded ahead) and a
+//     fold a span (a counting sort by key, a few barriers): 24.6 us a step
+//     on news20 and 29.9 us on webspam (NVIDIA H100 80GB HBM3).  Owned by
+//     their first flat position instead, the popular ids all fell to a
+//     block's first CTA (88-93 % of its entries on these rows).  The grid
+//     is sized to the entries, not to d_block.
 //   flush — operations: sum_j k_j replayed steps, one feature a thread,
 //     a grid sized to d (1,355,191 features for news20, ~672M replayed
 //     steps after a 500-step epoch: ~5 waves of 2,048 threads on 132 SMs,
@@ -80,8 +96,8 @@
 // Preconditions (checked by the Python wrappers): float32 w/z/val/coef/
 // corr, int32 last and idx with ids in [0, d_block), int64 row ids, all
 // contiguous, on the current device.  Each entry point returns
-// cudaGetLastError() (the catch-up cudaErrorInvalidValue unless 1 <= q <=
-// kMaxBlocks).
+// cudaGetLastError() (the catch-up, the touch and the proba update
+// cudaErrorInvalidValue unless 1 <= q <= kMaxBlocks).
 
 #include <cuda_runtime.h>
 
@@ -263,13 +279,16 @@ extern "C" int repro_lazy_catchup(const void* block_rows, int q,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int repro_lazy_touch_update(float* w, const int* idx,
-                                       const float* val, const float* coef,
-                                       const float* z, int u, int nnz,
-                                       float eta, float lam, float lam1,
-                                       float lam2, void* stream) {
-  return launch_entries(idx, val, coef, u, nnz,
-                        ProxUpdate{w, z, w, eta, lam, lam1, lam2},
+// rows is a host BlockRows; idx and val hold the step's gathered rows,
+// block l's at u * off[l]; w and z are whole (the q blocks' concatenated).
+extern "C" int repro_lazy_touch_update(const void* block_rows, int q,
+                                       const int* idx, const float* val,
+                                       const float* coef, float* w,
+                                       const float* z, int u, float eta,
+                                       float lam, float lam1, float lam2,
+                                       void* stream) {
+  return launch_entries(*static_cast<const BlockRows*>(block_rows), q, idx, val,
+                        coef, u, ProxUpdate{w, z, w, eta, lam, lam1, lam2},
                         static_cast<cudaStream_t>(stream));
 }
 
@@ -285,12 +304,15 @@ extern "C" int repro_lazy_flush(float* w, const int* last, const float* z,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int repro_lazy_proba_update(float* w, const int* idx,
-                                       const float* val, const float* coef,
+// The same launch as the touch update, the decay and prox strengths
+// scaled by corr (whole, like w and z).
+extern "C" int repro_lazy_proba_update(const void* block_rows, int q,
+                                       const int* idx, const float* val,
+                                       const float* coef, float* w,
                                        const float* z, const float* corr,
-                                       int u, int nnz, float eta, float lam,
+                                       int u, float eta, float lam,
                                        float lam1, float lam2, void* stream) {
-  return launch_entries(idx, val, coef, u, nnz,
-                        ProbaUpdate{w, z, corr, eta, lam, lam1, lam2},
+  return launch_entries(*static_cast<const BlockRows*>(block_rows), q, idx, val,
+                        coef, u, ProbaUpdate{w, z, corr, eta, lam, lam1, lam2},
                         static_cast<cudaStream_t>(stream));
 }

@@ -17,6 +17,8 @@ features of the sampled rows and defer the decay of the rest:
   - :func:`lazy_touch_update`: the dense prox step at the touched features
     only, each feature's contributions added in flat order from 0.0
     (first-occurrence accumulation, the dense scatter's order);
+    :func:`touch_update` is one launch for a step's gathered rows in all q
+    blocks, :func:`lazy_touch_update` the one-block case;
   - :func:`lazy_flush`: at epoch end every feature replays its remaining
     deferred steps, so the block equals the dense iterate; a feature's
     replay reads only its own state, so one launch over the q blocks' w,
@@ -251,18 +253,6 @@ def _cuda_device(kernel: str, w: torch.Tensor) -> torch.device:
     return w.device
 
 
-def _rows(kernel, w, indices, values=None, coef=None):
-    """Check the block, its rows and the coefficients; return (u, nnz)."""
-    dev = _cuda_device(kernel, w)
-    _build.require_tensor(kernel, "w_block", w, torch.float32, dev, (None,))
-    _build.require_tensor(kernel, "indices", indices, torch.int32, dev, (None, None))
-    u, nnz = indices.shape
-    if values is not None:
-        _build.require_tensor(kernel, "values", values, torch.float32, dev, (u, nnz))
-        _build.require_tensor(kernel, "coef", coef, torch.float32, dev, (u,))
-    return u, nnz
-
-
 def _launch(kernel: str, entry: str, dev: torch.device, *args) -> None:
     """Call the C entry point on the current stream, check, count."""
     lib = _build.load_library()
@@ -324,6 +314,45 @@ def lazy_catchup(
     return catchup(rows, 1, None, indices.shape[0], w, last, z, eta, m, stop, lam, lam1, lam2)
 
 
+def touch_update(
+    rows: _build.BlockRows,  # the q blocks' widths and offsets (nnz, lo, off)
+    q: int,
+    indices: torch.Tensor,  # int32[u * sum_l nnz_l]: the step's gathered ids, block-LOCAL
+    values: torch.Tensor,  # float32[u * sum_l nnz_l]
+    coef: torch.Tensor,  # float32[u]
+    w: torch.Tensor,  # float32[d], the q blocks' w concatenated; in place
+    z: torch.Tensor,  # float32[d]
+    eta: float,
+    lam: float,
+    lam1: float,
+    lam2: float,
+    corr: torch.Tensor | None = None,  # float32[d]: the probabilistic update
+) -> torch.Tensor:
+    """Launch the touched pass on the current stream, one launch for the q
+    blocks: the exact step, or with ``corr`` the probabilistic one.  Block
+    l's u rows lie at ``u * off[l]`` of the gathered buffers
+    (:class:`~repro_torch.kernels.sparse_margin.StepRows`).  Returns w.
+    Ids must lie in their block (the kernel does not check)."""
+    kernel = "lazy_touch_update" if corr is None else "lazy_proba_update"
+    dev = _cuda_device(kernel, w)
+    _build.require_tensor(kernel, "w", w, torch.float32, dev, (None,))
+    _build.require_tensor(kernel, "z", z, torch.float32, dev, w.shape)
+    _build.require_tensor(kernel, "coef", coef, torch.float32, dev, (None,))
+    u = coef.shape[0]
+    total = u * sum(rows.nnz[:q])
+    _build.require_tensor(kernel, "indices", indices, torch.int32, dev, (total,))
+    _build.require_tensor(kernel, "values", values, torch.float32, dev, (total,))
+    scaled = ()
+    if corr is not None:
+        _build.require_tensor(kernel, "corr", corr, torch.float32, dev, w.shape)
+        scaled = (corr.data_ptr(),)
+    _launch(kernel, "repro_" + kernel, dev,
+            ctypes.addressof(rows), q, indices.data_ptr(), values.data_ptr(), coef.data_ptr(),
+            w.data_ptr(), z.data_ptr(), *scaled, u, float(eta), float(lam), float(lam1),
+            float(lam2))
+    return w
+
+
 def lazy_touch_update(
     w: torch.Tensor,  # float32[d_block], updated in place
     indices: torch.Tensor,
@@ -335,13 +364,11 @@ def lazy_touch_update(
     lam1: float,
     lam2: float,
 ) -> torch.Tensor:
-    """Launch the touch-update kernel on the current stream; returns w."""
-    u, nnz = _rows("lazy_touch_update", w, indices, values, coef)
-    _build.require_tensor("lazy_touch_update", "z_block", z, torch.float32, w.device, w.shape)
-    _launch("lazy_touch_update", "repro_lazy_touch_update", w.device,
-            w.data_ptr(), indices.data_ptr(), values.data_ptr(), coef.data_ptr(),
-            z.data_ptr(), u, nnz, float(eta), float(lam), float(lam1), float(lam2))
-    return w
+    """One block's touch update through the kernel: the q = 1 case over the
+    rows ``indices``; returns w."""
+    rows = _build.block_rows("lazy_touch_update", (indices,), (values,), w.shape, w.device)
+    return touch_update(rows, 1, indices.reshape(-1), values.reshape(-1), coef, w, z, eta,
+                        lam, lam1, lam2)
 
 
 def lazy_flush(
@@ -379,13 +406,8 @@ def lazy_proba_update(
     lam1: float,
     lam2: float,
 ) -> torch.Tensor:
-    """Launch the probabilistic-update kernel on the current stream; returns w."""
-    u, nnz = _rows("lazy_proba_update", w, indices, values, coef)
-    dev = w.device
-    _build.require_tensor("lazy_proba_update", "z_block", z, torch.float32, dev, w.shape)
-    _build.require_tensor("lazy_proba_update", "corr_block", corr, torch.float32, dev, w.shape)
-    _launch("lazy_proba_update", "repro_lazy_proba_update", dev,
-            w.data_ptr(), indices.data_ptr(), values.data_ptr(), coef.data_ptr(),
-            z.data_ptr(), corr.data_ptr(), u, nnz, float(eta), float(lam), float(lam1),
-            float(lam2))
-    return w
+    """One block's probabilistic update through the touched pass's kernel
+    (the q = 1 case over the rows ``indices``); returns w."""
+    rows = _build.block_rows("lazy_proba_update", (indices,), (values,), w.shape, w.device)
+    return touch_update(rows, 1, indices.reshape(-1), values.reshape(-1), coef, w, z, eta,
+                        lam, lam1, lam2, corr)

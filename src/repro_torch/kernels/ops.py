@@ -2,8 +2,8 @@
 
 Port of ``repro.kernels.ops`` for the kernels of the FD-SVRG main path
 (with the port's own entries over all q blocks in one launch: the step's
-and the snapshot's margins, the step's catch-up and the snapshot
-scatter; a step's and a snapshot's loss coefficients), its lazy inner
+and the snapshot's margins, the step's catch-up and touched pass and the
+snapshot scatter; a step's and a snapshot's loss coefficients), its lazy inner
 steps (the epoch-end flush over the whole width in one launch), the
 dense-layout step and LM decode attention (with split-K across the ranks
 of a cache split by position).  On a CUDA tensor each
@@ -335,6 +335,39 @@ def lazy_block_touch_update(
     )
 
 
+def lazy_step_touch_update(
+    block_data,  # BlockCSR: q blocks of rows on w's device
+    rows: StepRows,  # the step's gathered rows (step_margins' ``out``)
+    w: torch.Tensor,  # float32[d], the q blocks' w concatenated, caught up; in place
+    z: torch.Tensor,  # float32[d]
+    coef: torch.Tensor,  # float32[u] the step's coefficients
+    eta: float,  # masked step size (eta * option mask)
+    *,
+    lam: float,
+    lam1: float = 0.0,
+    lam2: float = 0.0,
+) -> torch.Tensor:
+    """Exact-lazy eager half-step of a step's rows in every block (each
+    block's touched features updated as :func:`lazy_block_touch_update`
+    updates them): on the card ONE launch for all q blocks, on the CPU the
+    plain version block after block.  Returns w."""
+    eta = float(np.float32(eta))
+    if _route(w, "lazy_touch_update"):
+        if w.device != block_data.device:
+            raise ValueError(f"lazy_touch_update: w is on {w.device}, the rows on "
+                             f"{block_data.device}")
+        if w.shape != (block_data.dim,):
+            raise ValueError(f"lazy_touch_update: w has shape {tuple(w.shape)}, "
+                             f"expected ({block_data.dim},)")
+        return _lazy.touch_update(block_data.block_rows(), block_data.num_blocks, rows.indices,
+                                  rows.values, coef, w, z, eta, lam, lam1, lam2)
+    bounds = block_data.partition.bounds
+    for l, (idx, val) in enumerate(rows.blocks):
+        lo, hi = bounds[l], bounds[l + 1]
+        _lazy.lazy_touch_update_plain(w[lo:hi], idx, val, coef, z[lo:hi], eta, lam, lam1, lam2)
+    return w
+
+
 def lazy_block_flush(
     w_block: torch.Tensor,  # float32[d_block], updated in place
     last_block: torch.Tensor,  # int32[d_block]
@@ -558,6 +591,7 @@ __all__ = [
     "lazy_block_proba_update",
     "lazy_block_touch_update",
     "lazy_step_catchup",
+    "lazy_step_touch_update",
     "loss_and_grad",
     "margins_dense",
     "reset_launch_counts",

@@ -246,10 +246,23 @@ def test_kernel_sources_declare_their_c_entry_points_and_origin():
                        "repro_logistic_step_coef", "repro_logistic_snapshot_coef",
                        "repro_svrg_update", "repro_fused_update", "repro_flash_decode",
                        "repro_flash_decode_merge"]
+    params = {}
     for entry, _, argtypes in _build._SIGNATURES:
         src = next(t for t in text.values() if f'extern "C" int {entry}(' in t)
-        params = re.search(rf"{entry}\((.*?)\)\s*{{", src, re.S).group(1)
-        assert params.count(",") + 1 == len(argtypes), entry
+        params[entry] = re.search(rf"{entry}\((.*?)\)\s*{{", src, re.S).group(1)
+        assert params[entry].count(",") + 1 == len(argtypes), entry
+    # The steps' entries over q blocks take the host BlockRows and q first.
+    for entry in ("repro_sparse_margin", "repro_lazy_catchup", "repro_lazy_touch_update",
+                  "repro_lazy_proba_update"):
+        assert re.match(r"const void\* \w+,\s*int q,", params[entry]), entry
+    assert re.sub(r"\s+", " ", params["repro_lazy_touch_update"]) == (
+        "const void* block_rows, int q, const int* idx, const float* val, const float* coef, "
+        "float* w, const float* z, int u, float eta, float lam, float lam1, float lam2, "
+        "void* stream")
+    assert re.sub(r"\s+", " ", params["repro_lazy_proba_update"]) == (
+        "const void* block_rows, int q, const int* idx, const float* val, const float* coef, "
+        "float* w, const float* z, const float* corr, int u, float eta, float lam, "
+        "float lam1, float lam2, void* stream")
     assert "repro/kernels/sparse_margin.py" in text["sparse_margin.cu"]
     assert "repro/kernels/prox_update.py" in text["prox_update.cu"]
     # The port's own kernel: the reference's scatter is a plain .at[].add.
@@ -388,9 +401,9 @@ def test_touched_kernels_equal_cpu_plain_bitwise_on_card(cuda_device, kernel, u,
     """The four kernels of the touched pass equal their plain versions on
     the CPU (whose index_add_ adds in flat order) bit for bit, twice; u = 64
     gives 10,304 entries, past one staged window.  The lazy kernels' grid
-    is sized to the entries (256 flat positions a block), not to d; at d =
-    2,000,000 the ids spread over the whole block.  fused_update takes the
-    setting's smooth lam only."""
+    is sized to the entries (an id part a CTA, 1,024 flat positions a
+    part), not to d; at d = 2,000,000 the ids spread over the whole block.
+    fused_update takes the setting's smooth lam only."""
     lam, lam1, lam2 = REG_SETTINGS[reg]
     case = _touched_case(u, seed=u, d=d)
     mod = TOUCHED_KERNELS[kernel]

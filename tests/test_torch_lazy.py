@@ -46,7 +46,9 @@ from repro_torch.core import fdsvrg as t_fdsvrg
 from repro_torch.core import losses as t_losses
 from repro_torch.core.partition import balanced as t_balanced
 from repro_torch.data.block_csr import BlockCSR
+from repro_torch.data.sparse import PaddedCSR
 from repro_torch.data.synthetic import make_sparse_classification as t_make
+from repro_torch.kernels import _build
 from repro_torch.kernels import lazy_update as lazy_mod
 from repro_torch.kernels import ops
 
@@ -408,6 +410,97 @@ def test_worker_simulation_rejects_unknown_variant():
 
 
 # ---------------------------------------------------------------------------
+# a step's touched pass over all q blocks
+# ---------------------------------------------------------------------------
+
+TOUCH_ETA = 0.2
+
+
+@functools.lru_cache(maxsize=None)
+def _touch_layout(rows: str, q: int) -> BlockCSR:
+    """256 rows of 120 ids over 60,013 features, cut into q blocks; each
+    block's rows padded to its budget with (local id 0, value 0.0).
+    "zipf": the benchmark's rows, each id once a row, ids by Zipf
+    popularity (a = 1.3) scattered by a multiplier, so the popular ids are
+    in every row; "generator": the port's generator, whose rows repeat
+    popular ids."""
+    n, nnz, d = 256, 120, 60_013
+    if rows == "generator":
+        data = t_make(dim=d, num_instances=n, nnz_per_instance=nnz, seed=q)
+    else:
+        rng = np.random.default_rng(q)
+        raw = np.minimum(rng.random((n, nnz)) ** (-1.0 / 0.3) - 1.0, d - nnz)
+        ranks = np.sort(np.clip(np.floor(raw).astype(np.int64), 0, d - nnz - 1), axis=1)
+        steps = np.arange(nnz)
+        ranks = np.maximum.accumulate(ranks - steps, axis=1) + steps  # distinct in a row
+        idx = ((ranks * 7919 + 12345) % d).astype(np.int32)
+        val = rng.gamma(2.0, size=(n, nnz)).astype(np.float32)
+        val /= np.linalg.norm(val, axis=1, keepdims=True)
+        labels = np.where(rng.random(n) < 0.5, -1.0, 1.0).astype(np.float32)
+        data = PaddedCSR(torch.from_numpy(idx), torch.from_numpy(val),
+                         torch.from_numpy(labels), d)
+    return BlockCSR.from_padded(data, t_balanced(d, q))
+
+
+def _touch_step(bd: BlockCSR, u: int, seed: int, device="cpu"):
+    """A step's gathered rows (as step_margins leaves them in ``out``), w,
+    z and coefficients, on ``device``."""
+    rng = np.random.default_rng(seed)
+    bd = bd.to(device)
+    ids = torch.from_numpy(rng.integers(0, bd.num_instances, size=u)).to(device)
+    w = torch.from_numpy(rng.normal(size=bd.dim).astype(np.float32)).to(device)
+    z = torch.from_numpy((rng.normal(size=bd.dim) * 0.1).astype(np.float32)).to(device)
+    coef = torch.from_numpy(rng.normal(size=u).astype(np.float32)).to(device)
+    rows = ops.step_rows(bd, u)
+    ops.step_margins(bd, ids, w, out=rows)
+    return bd, rows, w, z, coef
+
+
+def _per_block_touch(bd, blocks, w, z, coef, reg):
+    """q one-block touch updates, in place: the kernel's one-block launches
+    on the card, the plain version on the CPU."""
+    lam, lam1, lam2 = LAMS[reg]
+    b = bd.partition.bounds
+    for l, (idx, val) in enumerate(blocks):
+        ops.lazy_block_touch_update(w[b[l]:b[l + 1]], idx, val, coef, z[b[l]:b[l + 1]],
+                                    TOUCH_ETA, lam=lam, lam1=lam1, lam2=lam2)
+    return w
+
+
+@pytest.mark.parametrize("reg", list(LAMS))
+@pytest.mark.parametrize("u", [1, 4])
+@pytest.mark.parametrize("q", [1, 3, 8])
+def test_step_touch_update_equals_per_block_plain_bitwise(q, u, reg):
+    """On the CPU the step's touched pass is the per-block plain loop bit
+    for bit, in place, with no launch; features no row touches keep their
+    bits."""
+    lam, lam1, lam2 = LAMS[reg]
+    bd, rows, w, z, coef = _touch_step(_touch_layout("generator", q), u, seed=q + u)
+    got, want = w.clone(), w.clone()
+    before = ops.launch_counts()
+    out = ops.lazy_step_touch_update(bd, rows, got, z, coef, TOUCH_ETA, lam=lam, lam1=lam1,
+                                     lam2=lam2)
+    assert out is got and ops.launch_counts() == before
+    _per_block_touch(bd, rows.blocks, want, z, coef, reg)
+    assert np.array_equal(got.numpy().view(np.int32), want.numpy().view(np.int32))
+    b = bd.partition.bounds
+    touched = torch.cat([idx.reshape(-1).long() + b[l]
+                         for l, (idx, _) in enumerate(rows.blocks)]).unique()
+    keep = torch.ones(bd.dim, dtype=torch.bool)
+    keep[touched] = False
+    assert torch.equal(got[keep], w[keep]) and not torch.equal(got, w)
+
+
+def test_step_touch_update_refuses_unknown_devices_and_misfit_rows():
+    bd, rows, w, z, coef = _touch_step(_touch_layout("generator", 3), 2, seed=0)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.lazy_step_touch_update(bd, rows, w.to("meta"), z, coef, 0.1, lam=0.0)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        lazy_mod.touch_update(_build.BlockRows(), 3, rows.indices, rows.values, coef, w, z,
+                              0.1, 0.0, 0.0, 0.0)
+
+
+# ---------------------------------------------------------------------------
 # wrappers as far as the CPU can check them, and the card
 # ---------------------------------------------------------------------------
 
@@ -463,6 +556,107 @@ def test_lazy_kernels_match_plain_on_card(cuda_device, reg, u):
         got = lazy_mod.lazy_proba_update(*a, *rows, zt, ct, eta_m, lam, lam1, lam2)
         want = lazy_mod.lazy_proba_update_plain(*b, *rows, zt, ct, eta_m, lam, lam1, lam2)
         assert bool(torch.all(torch.abs(got - want) <= 1e-6 + RTOL * torch.abs(want)))
+
+
+def _bits_nan_aware(t: torch.Tensor) -> np.ndarray:
+    """t's bits, NaN as one pattern (the card's and the CPU's NaNs differ)."""
+    t = t.cpu()
+    return torch.where(torch.isnan(t), torch.full_like(t, float("nan")), t).numpy().view(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reg", ["l2", "l1"])
+@pytest.mark.parametrize("u", [1, 8, 64, 128])
+@pytest.mark.parametrize("q", [1, 8, 16])
+@pytest.mark.parametrize("rows", ["zipf", "generator"])
+def test_step_touch_update_kernel_equals_cpu_plain_bitwise_on_card(cuda_device, rows, q, u,
+                                                                     reg):
+    """One launch over the q blocks equals q calls of the plain version on
+    the CPU (whose index_add_ adds in flat order) bit for bit, twice, and q
+    one-block launches.  "zipf" rows put the popular ids in every row;
+    "generator" rows repeat ids within a row, the hard flat-order case."""
+    lam, lam1, lam2 = LAMS[reg]
+    bd, step_rows, w, z, coef = _touch_step(_touch_layout(rows, q), u, seed=u + q,
+                                            device=cuda_device)
+    cpu_blocks = [(idx.cpu(), val.cpu()) for idx, val in step_rows.blocks]
+    want = _per_block_touch(bd.to("cpu"), cpu_blocks, w.cpu(), z.cpu(), coef.cpu(), reg)
+    for _ in range(2):
+        got = w.clone()
+        before = ops.launch_counts()["lazy_touch_update"]
+        ops.lazy_step_touch_update(bd, step_rows, got, z, coef, TOUCH_ETA, lam=lam, lam1=lam1,
+                                   lam2=lam2)
+        assert ops.launch_counts()["lazy_touch_update"] == before + 1
+        torch.cuda.synchronize()
+        assert np.array_equal(got.cpu().numpy().view(np.int32), want.numpy().view(np.int32))
+    one_block = _per_block_touch(bd, step_rows.blocks, w.clone(), z, coef, reg)
+    assert torch.equal(one_block.view(torch.int32), got.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one id fills every entry", "padding only", "NaN coefficient"])
+def test_step_touch_update_edge_cases_on_card(cuda_device, case):
+    """Two blocks of u = 64 rows, the first made the edge case: one id in
+    every entry (a chain of u * nnz adds), or padding only (id 0 updated
+    with g = +0.0); or a NaN coefficient, which must reach every id of its
+    row.  Bitwise the CPU's plain version, NaN taken as one pattern."""
+    rng = np.random.default_rng(7)
+    u, nnz, dims = 64, 40, (300, 500)
+    idx = [rng.integers(0, d, size=(u, nnz)).astype(np.int32) for d in dims]
+    val = [rng.normal(size=(u, nnz)).astype(np.float32) for _ in dims]
+    coef = rng.normal(size=u).astype(np.float32)
+    if case == "one id fills every entry":
+        idx[0][:] = 17
+    elif case == "padding only":
+        idx[0][:], val[0][:] = 0, 0.0
+    else:
+        coef[3] = np.nan
+    w = rng.normal(size=sum(dims)).astype(np.float32)
+    z = (rng.normal(size=sum(dims)) * 0.1).astype(np.float32)
+    lam, lam1, lam2 = LAMS["l2"]
+    want, zt = _t(w, z)
+    lo = 0
+    for i, v, d in zip(idx, val, dims):
+        lazy_mod.lazy_touch_update_plain(want[lo:lo + d], *_t(i, v, coef), zt[lo:lo + d],
+                                         TOUCH_ETA, lam, lam1, lam2)
+        lo += d
+    dev = cuda_device
+    it, vt = _on(dev, *idx), _on(dev, *val)
+    rows = _build.block_rows("lazy_touch_update", it, vt, dims, it[0].device)
+    got = torch.from_numpy(w).to(dev)
+    lazy_mod.touch_update(rows, 2, torch.cat([i.reshape(-1) for i in it]),
+                          torch.cat([v.reshape(-1) for v in vt]), torch.from_numpy(coef).to(dev),
+                          got, torch.from_numpy(z).to(dev), TOUCH_ETA, lam, lam1, lam2)
+    torch.cuda.synchronize()
+    assert np.array_equal(_bits_nan_aware(got), _bits_nan_aware(want))
+    if case == "NaN coefficient":
+        assert int(torch.isnan(got).sum()) == sum(np.unique(i[3]).size for i in idx)
+    elif case == "padding only":
+        assert got[0].item() != w[0]  # id 0 moved by the dense step with g = +0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reg", ["l2", "l1"])
+@pytest.mark.parametrize("q", [1, 8, 16])
+def test_exact_lazy_epoch_launches_one_touch_update_a_step_on_card(cuda_device, q, reg):
+    """An exact-lazy epoch of M steps on the kernel route launches the
+    touched pass M times, whatever q, and equals the dense epoch bit for
+    bit on the card."""
+    bd = _touch_layout("zipf", q).to(cuda_device)
+    rng = np.random.default_rng(q)
+    w0 = torch.from_numpy((rng.normal(size=bd.dim) * 0.01).astype(np.float32)).to(cuda_device)
+    lam, lam2 = REGS[reg]
+    t_reg = t_losses.Regularizer(reg, lam, lam2)
+    z, s0 = t_fdsvrg._full_grad_blocks(bd, w0, t_losses.logistic, use_kernels=True)
+    steps, u = 12, 32
+    samples = rng.integers(0, bd.num_instances, size=(steps, u)).astype(np.int32)
+    mask = np.ones(steps, dtype=np.float32)
+    ops.reset_launch_counts()
+    lazy = t_fdsvrg._lazy_inner_epoch(bd, w0, z, s0, samples, 0.25, mask, None,
+                                      t_losses.logistic, t_reg, True, "exact")
+    assert ops.launch_counts()["lazy_touch_update"] == steps
+    dense = t_fdsvrg._inner_epoch(bd, w0, z, s0, samples, 0.25, mask, t_losses.logistic, t_reg,
+                                  True)
+    assert torch.equal(lazy, dense)
 
 
 if __name__ == "__main__":
